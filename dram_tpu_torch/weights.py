@@ -1,0 +1,161 @@
+"""Flagship weights: a reader for the flax msgpack checkpoint and the
+mapping from the flax parameter tree to the port's state_dict.
+
+`assets/bench_weights.ckpt.xz` is an lzma-compressed flax msgpack of
+{"params": ..., "batch_stats": ...} (written by tools/export_bench_weights.py,
+read in the JAX package by bench.py:68-98 through
+flax.serialization.msgpack_restore). Its arrays are flax ext type 1: the
+msgpack of (shape, dtype name, raw bytes). The reader below covers the
+msgpack subset such a file uses (maps, arrays, str, bin, ints, floats and
+ext type 1), so the port needs neither msgpack nor flax.
+
+`from_jax` is the inverse of dram_tpu/train/torch_import.py:13-33, with the
+key mapping of tests/test_reference_parity.py:186-232: conv kernels
+(kd, kh, kw, Ci, Co) become (Co, Ci, kd, kh, kw), dense kernels (in, out)
+become (out, in), BN scale/bias/mean/var become weight/bias/running_mean/
+running_var; module names are kept, joined with dots.
+"""
+
+from __future__ import annotations
+
+import lzma
+import os
+import struct
+
+import numpy as np
+import torch
+
+DEFAULT_PATH = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "assets", "bench_weights.ckpt.xz")
+
+_EXT_NDARRAY = 1  # flax serialization's ndarray ext code
+
+
+def _ext(code, data):
+    if code != _EXT_NDARRAY:
+        raise ValueError(f"msgpack ext type {code} is not a flax ndarray")
+    shape, dtype, raw = msgpack_unpackb(data)
+    return np.frombuffer(raw, dtype=np.dtype(dtype)).reshape(shape).copy()
+
+
+# fixed-width formats: byte -> (struct format, kind)
+_FIXED = {0xca: (">f", "v"), 0xcb: (">d", "v"),
+          0xcc: (">B", "v"), 0xcd: (">H", "v"), 0xce: (">I", "v"),
+          0xcf: (">Q", "v"), 0xd0: (">b", "v"), 0xd1: (">h", "v"),
+          0xd2: (">i", "v"), 0xd3: (">q", "v"),
+          0xc4: (">B", "bin"), 0xc5: (">H", "bin"), 0xc6: (">I", "bin"),
+          0xd9: (">B", "str"), 0xda: (">H", "str"), 0xdb: (">I", "str"),
+          0xdc: (">H", "arr"), 0xdd: (">I", "arr"),
+          0xde: (">H", "map"), 0xdf: (">I", "map"),
+          0xc7: (">B", "ext"), 0xc8: (">H", "ext"), 0xc9: (">I", "ext")}
+_FIXEXT = {0xd4: 1, 0xd5: 2, 0xd6: 4, 0xd7: 8, 0xd8: 16}
+
+
+def _read(buf, pos):
+    b = buf[pos]
+    pos += 1
+    if b <= 0x7f:
+        return b, pos
+    if b >= 0xe0:
+        return b - 0x100, pos
+    if 0x80 <= b <= 0x8f:
+        return _items(buf, pos, b & 0x0f, "map")
+    if 0x90 <= b <= 0x9f:
+        return _items(buf, pos, b & 0x0f, "arr")
+    if 0xa0 <= b <= 0xbf:
+        n = b & 0x1f
+        return bytes(buf[pos:pos + n]).decode(), pos + n
+    if b in _FIXEXT:
+        n = _FIXEXT[b]
+        code = struct.unpack_from(">b", buf, pos)[0]
+        return _ext(code, bytes(buf[pos + 1:pos + 1 + n])), pos + 1 + n
+    if b not in _FIXED:
+        raise ValueError(f"msgpack byte 0x{b:02x} at {pos - 1} not supported")
+    fmt, kind = _FIXED[b]
+    v = struct.unpack_from(fmt, buf, pos)[0]
+    pos += struct.calcsize(fmt)
+    if kind == "v":
+        return v, pos
+    if kind == "bin":
+        return bytes(buf[pos:pos + v]), pos + v
+    if kind == "str":
+        return bytes(buf[pos:pos + v]).decode(), pos + v
+    if kind == "ext":
+        code = struct.unpack_from(">b", buf, pos)[0]
+        return _ext(code, bytes(buf[pos + 1:pos + 1 + v])), pos + 1 + v
+    return _items(buf, pos, v, kind)
+
+
+def _items(buf, pos, n, kind):
+    out = []
+    for _ in range(n * (2 if kind == "map" else 1)):
+        item, pos = _read(buf, pos)
+        out.append(item)
+    if kind == "map":
+        return dict(zip(out[0::2], out[1::2])), pos
+    return out, pos
+
+
+def msgpack_unpackb(data):
+    """Decode one msgpack object (flax array ext types -> ndarrays)."""
+    buf = memoryview(data)
+    obj, pos = _read(buf, 0)
+    if pos != len(buf):
+        raise ValueError(f"msgpack: {len(buf) - pos} trailing bytes")
+    return obj
+
+
+def load_bench_weights(path=DEFAULT_PATH):
+    """(params, batch_stats) of the trained flagship as nested dicts of
+    numpy arrays; floating params cast to f32 (bench.py:86-89)."""
+    with open(path, "rb") as fp:
+        tree = msgpack_unpackb(lzma.decompress(fp.read()))
+
+    def f32(t):
+        if isinstance(t, dict):
+            return {k: f32(v) for k, v in t.items()}
+        return t.astype(np.float32) if np.issubdtype(t.dtype, np.floating) \
+            else t
+    return f32(tree["params"]), tree["batch_stats"]
+
+
+def _flatten(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+_STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
+
+
+def from_jax(params, batch_stats):
+    """flax (params, batch_stats) -> the port's state_dict of tensors."""
+    sd = {}
+    for path, a in _flatten(params):
+        mod, leaf = ".".join(path[:-1]), path[-1]
+        if leaf == "kernel":
+            # conv (kd, kh, kw, Ci, Co) -> (Co, Ci, kd, kh, kw);
+            # dense (in, out) -> (out, in)
+            a = a.transpose(4, 3, 0, 1, 2) if a.ndim == 5 else a.T
+            name = "weight"
+        elif leaf == "scale":
+            name = "weight"
+        elif leaf == "bias":
+            name = "bias"
+        else:
+            raise KeyError(f"unexpected flax param {'/'.join(path)}")
+        sd[f"{mod}.{name}"] = torch.from_numpy(np.array(a))
+    for path, a in _flatten(batch_stats):
+        if path[-1] not in _STAT_NAMES:
+            raise KeyError(f"unexpected flax batch stat {'/'.join(path)}")
+        sd[".".join(path[:-1]) + "." + _STAT_NAMES[path[-1]]] = \
+            torch.from_numpy(np.array(a))
+    return sd
+
+
+def load_into(model, params, batch_stats):
+    """Copy a flax tree into `model` (strict: every key must match)."""
+    model.load_state_dict(from_jax(params, batch_stats), strict=True)
+    return model

@@ -1,0 +1,116 @@
+"""Guards of the port's boundaries: dram_tpu_torch and chip_smoke.py import
+without jax, flax, msgpack, ml_dtypes, scipy or dram_tpu; the CUDA sources
+include no PyTorch, pybind11 or CUTLASS header; a CUDA request without a
+GPU raises; chip_smoke.py fails without a GPU and outside the repo."""
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(REPO, "dram_tpu_torch", "kernels", "csrc")
+
+BLOCKER = """
+import sys
+BLOCKED = {"jax", "jaxlib", "flax", "msgpack", "ml_dtypes", "scipy",
+           "dram_tpu"}
+class _Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked import " + name)
+        return None
+sys.meta_path.insert(0, _Blocker())
+"""
+
+
+def _run(code, cwd=REPO):
+    return subprocess.run([sys.executable, "-c", BLOCKER + code], cwd=cwd,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_package_imports_without_jax_or_dram_tpu():
+    r = _run("""
+import pkgutil, importlib, dram_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(dram_tpu_torch.__path__,
+                                               "dram_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+print(len(names))
+""")
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.split()[-1]) >= 15
+
+
+def test_chip_smoke_imports_without_jax_or_dram_tpu():
+    r = _run("import runpy; runpy.run_path('chip_smoke.py', "
+             "run_name='chip_smoke_import')")
+    assert r.returncode == 0, r.stderr
+
+
+def test_cuda_sources_include_plain_cuda_headers_only():
+    srcs = [f for f in os.listdir(CSRC) if f.endswith((".cu", ".cuh"))]
+    assert sorted(srcs) == ["conv3x3x3.cu", "maxpool2.cu",
+                            "stencil_attention.cu", "upsample2x.cu"]
+    for f in srcs:
+        with open(os.path.join(CSRC, f)) as fp:
+            includes = re.findall(r"#\s*include\s*[<\"]([^>\"]+)", fp.read())
+        assert includes, f
+        for inc in includes:
+            assert not re.match(r"(torch|ATen|c10|pybind11|cutlass|cute)",
+                                inc), f"{f} includes {inc}"
+        with open(os.path.join(CSRC, f)) as fp:
+            assert 'extern "C" int' in fp.read(), f
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    from dram_tpu_torch.kernels import _build
+    if shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("nvcc is present")
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load()
+
+
+def test_library_name_tracks_sources_and_flags(monkeypatch):
+    from dram_tpu_torch.kernels import _build
+    a = _build.library_path()
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
+    assert _build.library_path() != a
+    assert os.path.dirname(a).endswith(os.path.join("dram_tpu_torch",
+                                                    "_build"))
+
+
+def test_require_cuda():
+    from dram_tpu_torch import require_cuda
+    assert require_cuda("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        require_cuda("cuda")
+
+
+def test_chip_smoke_fails_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+    assert "cuda.is_available() is false" in r.stderr
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                       capture_output=True, text=True, timeout=120,
+                       env={k: v for k, v in os.environ.items()
+                            if k != "PYTHONPATH"})
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout

@@ -7,12 +7,13 @@ Phases, each under a faulthandler watchdog that ends a hung run with a
 traceback and a non-zero exit:
 
 1. card: the card's name and power limit (nvidia-smi); fails without CUDA.
-2. build: nvcc builds the four CUDA kernels from dram_tpu_torch/kernels/csrc.
-3. one phase per kernel, at the main path's largest shape: the kernel
-   against its plain PyTorch version on the same inputs (error against the
-   stated tolerance), then CUDA-event times (median of 7 after warm-up) of
-   the kernel, the plain version and, where one PyTorch call computes the
-   same function, that call (timed here only; the port never calls it).
+2. build: nvcc builds the CUDA kernels from dram_tpu_torch/kernels/csrc.
+3. one phase per kernel (and per training mode of the conv kernel), at
+   its path's largest shape: the kernel against its plain PyTorch version
+   on the same inputs (error against the stated tolerance), then
+   CUDA-event times (median of 7 after warm-up) of the kernel, the plain
+   version and, where one PyTorch call computes the same function, that
+   call (timed here only; the port never calls it).
 4. pipeline: the trained flagship DC3DATGeneric (assets/bench_weights.ckpt.xz)
    at full width on a synthetic 160x192x192 scan at anisotropic spacing:
    host prep, then process_chunks with the kernels for want_heatmap False
@@ -20,6 +21,16 @@ traceback and a non-zero exit:
    after.
 5. plain: the same scan with the plain versions swapped in on the card;
    the masks of both runs must agree (Dice >= 0.995, same Otsu bin).
+6. train: st_dram_ref's DC3D at its published widths in bf16, started
+   from the flagship's trained backbone, takes 3 training steps
+   (train_steps) on one synthetic batch of 10 x 80^3 lobe chunks with the
+   kernels, launch counts set to 0 just before and read just after; per
+   step the loss terms, the forward / backward / optimizer times (CUDA
+   events) and the peak device memory.
+7. train plain: the same 3 steps from the same start with the plain
+   versions swapped in; step-1 loss terms, every parameter gradient
+   (cosine and relative L2) and the BatchNorm statistics must agree with
+   the kernel run.
 
 Prints a `{"kernels": [...]}` JSON line and, last, the device line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before it.
@@ -38,21 +49,30 @@ import torch
 import torch.nn.functional as F
 
 from dram_tpu_torch import weights
-from dram_tpu_torch.data.synth import synth_scan
+from dram_tpu_torch.configs import st_dram_ref
+from dram_tpu_torch.data.synth import synth_scan, train_batch
 from dram_tpu_torch.infer.fast import FastScanPipeline, prep_scan_chunks
 from dram_tpu_torch.kernels import (_build, conv_stack, pool, upsample,
                                     window_attention)
-from dram_tpu_torch.models import DC3DATGeneric
+from dram_tpu_torch.models import DC3D, DC3DATGeneric
+from dram_tpu_torch.train import train_steps
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LIMITS = {"card": 30, "build": 180, "kernel": 60, "weights": 60,
-          "pipeline": 120, "plain": 120}
+          "pipeline": 120, "plain": 120, "train": 300, "train_plain": 300}
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor-core
 # and f32 CUDA-core flop/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 SCAN_SHAPE, SPACING, SEED = (160, 192, 192), (1.25, 0.8, 0.8), 0
 SEVERITIES = [3, 4, 2, 5, 3]
 WINDOW = (-1000, -700)
+TRAIN_STEPS = 3
+# kernel run vs plain run of the training step on the card: step-1 loss
+# terms (relative), every parameter gradient's cosine and relative L2, and
+# the relative L2 of the BatchNorm batch statistics that step 1 folds into
+# the running ones. The sound kernels read 7.5e-3 and 4.4e-5 on the last
+# two; PERF.md gives the readings of deliberately broken kernels.
+LOSS_RTOL, GRAD_COS_MIN, GRAD_REL_L2, BN_REL_L2 = 1e-2, 0.99, 3e-2, 1e-3
 
 
 @contextlib.contextmanager
@@ -96,28 +116,40 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def _outputs(y):
+    return y if isinstance(y, tuple) else (y,)
+
+
 def check_kernel(name, kernel, plain, args, tol, library=None, work=None):
     """Hold kernel(*args) against plain(*args); time kernel, plain and the
-    library call. `tol(plain_out)` is the allowed max |kernel - plain|."""
-    y = kernel(*args)
+    library call. Each may return a tensor or a tuple of them; `tol` (or
+    one per output) maps a plain output to the allowed max
+    |kernel - plain|. max_abs_err is that of the first output."""
+    y = _outputs(kernel(*args))
     torch.cuda.synchronize()
-    yp = plain(*args)
+    yp = _outputs(plain(*args))
     torch.cuda.synchronize()
-    err = (y.float() - yp.float()).abs().max().item()
-    allowed = tol(yp.float())
-    print(f"# {name}: max_abs_err {err:.3g} (allowed {allowed:.3g}), "
-          f"max_rel_err {err / max(yp.float().abs().max().item(), 1e-30):.3g}",
-          flush=True)
-    if not err <= allowed:
-        fail(f"{name} disagrees with its plain version")
+    tols = tol if isinstance(tol, tuple) else (tol,) * len(y)
+    errs = []
+    for k, (a, b, t) in enumerate(zip(y, yp, tols)):
+        err = (a.float() - b.float()).abs().max().item()
+        allowed = t(b.float())
+        tag = name if len(y) == 1 else f"{name} output {k}"
+        print(f"# {tag}: max_abs_err {err:.3g} (allowed {allowed:.3g}), "
+              f"max_rel_err "
+              f"{err / max(b.float().abs().max().item(), 1e-30):.3g}",
+              flush=True)
+        if not err <= allowed:
+            fail(f"{tag} disagrees with its plain version")
+        errs.append(err)
     ms = cuda_ms(lambda: kernel(*args))
     plain_ms = cuda_ms(lambda: plain(*args))
     library_ms = cuda_ms(library) if library is not None else None
-    bound_ms, bound_by = bound(*work(y))
+    bound_ms, bound_by = bound(*work(*y))
     print(f"# {name}: ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
           f"{library_ms if library_ms is None else round(library_ms, 4)} "
           f"bound_ms {bound_ms:.4f} ({bound_by})", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    return {"max_abs_err": errs[0], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
 
@@ -189,10 +221,149 @@ def kernel_phases(gen):
     return res
 
 
+def stats_tol(y_plain_f32):
+    """Allowed |kernel - plain| of the (2, Co) [sum, sum of squares]
+    statistics: 1e-4 of the channel's sum of |y| and of y^2 (both sides
+    add the same f32 values in another order; the kernel in 64-row blocks,
+    then per-block rows in two fixed passes)."""
+    dims = (0, 1, 2, 3)
+    lim = torch.stack([y_plain_f32.abs().sum(dims),
+                       (y_plain_f32 * y_plain_f32).sum(dims)])
+    return 1e-4 * lim
+
+
+def check_stats(name, st, st_plain, lim):
+    err = (st - st_plain).abs()
+    worst = (err / lim).max().item()
+    print(f"# {name} statistics: max_abs_err {err.max().item():.3g}, worst "
+          f"share of the allowed error {worst:.3g}", flush=True)
+    if not worst <= 1.0:
+        fail(f"{name} statistics disagree with the plain version")
+
+
+def train_kernel_phases(gen):
+    """The training kernels at the st_dram_ref step's largest shapes
+    (batch 10 x 80^3; us_2's conv_0 [upsample 128 | skip 64] -> 64 for the
+    convs, ds_0's 64-channel pool, us_2's 128-channel upsample)."""
+    def rnd(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    res = {}
+    V = 10 * 80 ** 3
+    x1, x2 = rnd(10, 80, 80, 80, 128), rnd(10, 80, 80, 80, 64)
+    w = rnd(64, 192, 3, 3, 3, dtype=torch.float32, scale=0.03)
+    xcat = torch.cat([x1, x2], -1).permute(0, 4, 1, 2, 3)  # channels_last_3d
+    wl = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+    flops = 2.0 * V * 27 * 192 * 64
+    with phase("kernel conv3x3x3_train", LIMITS["kernel"]):
+        # raw output + statistics (conv_0's mode), then the prologue mode
+        # of conv_1 (64 -> 64) held against its plain version too
+        y, st = conv_stack.conv3x3x3_train(x1, w, x2=x2, stats=True)
+        yp, stp = conv_stack.conv3x3x3_train_plain(x1, w, x2=x2, stats=True)
+        check_stats("conv3x3x3_train", st, stp, stats_tol(yp.float()))
+        del y, yp
+        h = torch.relu(rnd(10, 80, 80, 80, 64))
+        w1 = rnd(64, 64, 3, 3, 3, dtype=torch.float32, scale=0.05)
+        pro = (torch.rand(64, generator=gen, device="cuda") + 0.5,
+               rnd(64, dtype=torch.float32, scale=0.3))
+        y, st = conv_stack.conv3x3x3_train(h, w1, prologue=pro, stats=True)
+        yp, stp = conv_stack.conv3x3x3_train_plain(h, w1, prologue=pro,
+                                                   stats=True)
+        err = (y.float() - yp.float()).abs().max().item()
+        allowed = 2 ** -7 * yp.float().abs().max().item()
+        print(f"# conv3x3x3_train prologue 64 -> 64: max_abs_err {err:.3g} "
+              f"(allowed {allowed:.3g})", flush=True)
+        if not err <= allowed:
+            fail("conv3x3x3_train prologue mode disagrees with its plain "
+                 "version")
+        check_stats("conv3x3x3_train prologue", st, stp,
+                    stats_tol(yp.float()))
+        del y, yp, h
+        res["conv3x3x3_train"] = check_kernel(
+            "conv3x3x3_train",
+            lambda a, b: conv_stack.conv3x3x3_train(a, w, x2=b,
+                                                    stats=True)[0],
+            lambda a, b: conv_stack.conv3x3x3_train_plain(a, w, x2=b,
+                                                          stats=True)[0],
+            (x1, x2), bf16_tol(2 ** -7),
+            library=lambda: F.conv3d(xcat, wl, padding=1),
+            work=lambda y: (nbytes(x1, x2, y) + w.numel() * 2, flops,
+                            BF16_FLOPS))
+
+    dy = rnd(10, 80, 80, 80, 64)
+    dyl = dy.permute(0, 4, 1, 2, 3)
+    with phase("kernel conv3x3x3_dx", LIMITS["kernel"]):
+        res["conv3x3x3_dx"] = check_kernel(
+            "conv3x3x3_dx",
+            lambda g: conv_stack.conv3x3x3_dx(g, w, split=(128, 64)),
+            lambda g: conv_stack.conv3x3x3_dx_plain(g, w, split=(128, 64)),
+            (dy,), bf16_tol(2 ** -7),
+            library=lambda: torch.nn.grad.conv3d_input(
+                xcat.shape, wl, dyl, padding=1),
+            work=lambda a, b: (nbytes(dy, a, b) + w.numel() * 2, flops,
+                               BF16_FLOPS))
+
+    with phase("kernel conv3x3x3_dw", LIMITS["kernel"]):
+        # the prologue mode (conv_1's dW) held against its plain version
+        h = torch.relu(rnd(10, 80, 80, 80, 64))
+        pro = (torch.rand(64, generator=gen, device="cuda") + 0.5,
+               rnd(64, dtype=torch.float32, scale=0.3))
+        a = conv_stack.conv3x3x3_dw(h, dy, prologue=pro)
+        b = conv_stack.conv3x3x3_dw_plain(h, dy, prologue=pro)
+        err = (a - b).abs().max().item()
+        allowed = 1e-3 * b.abs().max().item()
+        print(f"# conv3x3x3_dw prologue 64 -> 64: max_abs_err {err:.3g} "
+              f"(allowed {allowed:.3g})", flush=True)
+        if not err <= allowed:
+            fail("conv3x3x3_dw prologue mode disagrees with its plain "
+                 "version")
+        del h, a, b
+        # f32 sums of the same bf16 products over 5.12 M voxels in another
+        # order: 1e-3 of the largest weight gradient
+        res["conv3x3x3_dw"] = check_kernel(
+            "conv3x3x3_dw",
+            lambda a, b, g: conv_stack.conv3x3x3_dw(a, g, x2=b),
+            lambda a, b, g: conv_stack.conv3x3x3_dw_plain(a, g, x2=b),
+            (x1, x2, dy), lambda yp: 1e-3 * yp.abs().max().item(),
+            library=lambda: torch.nn.grad.conv3d_weight(
+                xcat, wl.shape, dyl, padding=1),
+            work=lambda dw: (nbytes(x1, x2, dy, dw), flops, BF16_FLOPS))
+    del x1, x2, xcat, dy, dyl
+
+    # the pool's input is post-ReLU: exact zeros tie inside windows
+    x = torch.relu(rnd(10, 80, 80, 80, 64))
+    g = rnd(10, 40, 40, 40, 64)
+    with phase("kernel maxpool2_bwd", LIMITS["kernel"]):
+        # no PyTorch call splits the cotangent over tied maxima
+        # (F.max_pool3d's backward routes it to one position): no library
+        res["maxpool2_bwd"] = check_kernel(
+            "maxpool2_bwd", pool.maxpool2_bwd, pool.maxpool2_bwd_plain,
+            (x, g), lambda yp: 0.0,
+            work=lambda dx: (nbytes(x, g, dx), 20.0 * x.numel(), F32_FLOPS))
+    del x, g
+
+    dy = rnd(10, 80, 80, 80, 128)
+    dyl = dy.permute(0, 4, 1, 2, 3)
+    with phase("kernel upsample2x_bwd", LIMITS["kernel"]):
+        res["upsample2x_bwd"] = check_kernel(
+            "upsample2x_bwd", upsample.upsample2x_bwd,
+            upsample.upsample2x_bwd_plain, (dy,), bf16_tol(2 ** -7),
+            library=lambda: torch.ops.aten.upsample_trilinear3d_backward(
+                dyl, [80, 80, 80], [10, 128, 40, 40, 40], True),
+            work=lambda dx: (nbytes(dy, dx), 16.0 * dy.numel(), F32_FLOPS))
+    return res
+
+
 WRAPPERS = {"conv3x3x3": (conv_stack, "conv3x3x3"),
             "maxpool2": (pool, "maxpool2"),
             "upsample2x": (upsample, "upsample2x"),
-            "stencil_attention": (window_attention, "stencil_attention")}
+            "stencil_attention": (window_attention, "stencil_attention"),
+            "conv3x3x3_train": (conv_stack, "conv3x3x3_train"),
+            "conv3x3x3_dx": (conv_stack, "conv3x3x3_dx"),
+            "conv3x3x3_dw": (conv_stack, "conv3x3x3_dw"),
+            "maxpool2_bwd": (pool, "maxpool2_bwd"),
+            "upsample2x_bwd": (upsample, "upsample2x_bwd")}
 META = {
     "conv3x3x3": ("dram_tpu_torch/kernels/csrc/conv3x3x3.cu",
                   "dram_tpu/core/pallas/fused_stack.py:305"),
@@ -202,7 +373,24 @@ META = {
                    "dram_tpu/core/pallas/upsample.py:202"),
     "stencil_attention": ("dram_tpu_torch/kernels/csrc/stencil_attention.cu",
                           "dram_tpu/core/pallas/window_attention.py:262"),
+    "conv3x3x3_train": ("dram_tpu_torch/kernels/csrc/conv3x3x3.cu",
+                        "dram_tpu/core/pallas/fused_stack.py:305"),
+    "conv3x3x3_dx": ("dram_tpu_torch/kernels/csrc/conv3x3x3.cu",
+                     "dram_tpu/core/pallas/fused_stack.py:305"),
+    "conv3x3x3_dw": ("dram_tpu_torch/kernels/csrc/conv3x3x3_dw.cu",
+                     "dram_tpu/core/pallas/fused_stack.py:388"),
+    "maxpool2_bwd": ("dram_tpu_torch/kernels/csrc/maxpool2.cu",
+                     "dram_tpu/core/pallas/pool.py:245"),
+    "upsample2x_bwd": ("dram_tpu_torch/kernels/csrc/upsample2x.cu",
+                       "dram_tpu/core/pallas/upsample.py:149"),
 }
+# the kernels each path launches: the chunk-wire inference and the
+# st_dram_ref training step
+PATHS = {"pipeline": ("conv3x3x3", "maxpool2", "upsample2x",
+                      "stencil_attention"),
+         "train": ("conv3x3x3_train", "conv3x3x3_dx", "conv3x3x3_dw",
+                   "maxpool2", "maxpool2_bwd", "upsample2x",
+                   "upsample2x_bwd")}
 
 
 @contextlib.contextmanager
@@ -239,6 +427,82 @@ def run_scan(pipe, prepc, want_heatmap, label):
             and 0.0 <= out["threshold"] <= 1.0):
         fail(f"{label}: non-finite ratios or threshold")
     return out
+
+
+def zero_counts():
+    for mod, attr in WRAPPERS.values():
+        getattr(mod, attr).launches = 0
+
+
+def path_counts(path):
+    """Launch counts of `path`'s kernels since zero_counts(); fails when
+    one of them never launched."""
+    counts = {k: getattr(*WRAPPERS[k]).launches for k in PATHS[path]}
+    missing = [k for k, n in counts.items() if n == 0]
+    if missing:
+        fail(f"kernels never launched on the {path} path: {missing}")
+    return counts
+
+
+def run_train(label, batch, bench):
+    """TRAIN_STEPS steps of st_dram_ref from the flagship's backbone on
+    `batch`; returns the step-1 loss terms, gradients and buffers."""
+    first = {}
+
+    def on_step(i, step, r):
+        if i == 0:
+            first["grads"] = {n: p.grad.detach().float().clone()
+                              for n, p in step.model.named_parameters()}
+            first["buffers"] = {n: b.detach().clone()
+                                for n, b in step.model.named_buffers()}
+
+    out = train_steps(st_dram_ref, TRAIN_STEPS, [batch], device="cuda",
+                      weights_path=bench, on_step=on_step)
+    for i in range(TRAIN_STEPS):
+        (reg, seg), ms = out["losses"][i], out["ms"][i]
+        print(f"# train {label} step {i + 1}: reg {reg:.6g} seg {seg:.6g} "
+              f"total {out['loss'][i]:.6g}; ms forward {ms['forward']:.1f} "
+              f"backward {ms['backward']:.1f} optimizer "
+              f"{ms['optimizer']:.1f}; peak {out['peak_mib'][i]:.0f} MiB",
+              flush=True)
+        if not np.isfinite(out["losses"][i] + [out["loss"][i]]).all():
+            fail(f"train {label} step {i + 1}: non-finite loss")
+    for n, g in first["grads"].items():
+        if not torch.isfinite(g).all():
+            fail(f"train {label}: non-finite gradient of {n}")
+    first["losses"] = out["losses"][0]
+    return first
+
+
+def compare_train(k, p, initial):
+    """Kernel run vs plain run of the training step: step-1 loss terms,
+    every parameter gradient, and the BatchNorm batch statistics that
+    step 1 folded into the running ones (r1 = 0.9 r0 + 0.1 batch)."""
+    rel = [abs(a - b) / max(abs(b), 1e-30)
+           for a, b in zip(k["losses"], p["losses"])]
+    cos, rl2 = {}, {}
+    for n, gp in p["grads"].items():
+        gk = k["grads"][n]
+        cos[n] = (torch.dot(gk.flatten(), gp.flatten())
+                  / (gk.norm() * gp.norm()).clamp(min=1e-30)).item()
+        rl2[n] = ((gk - gp).norm() / gp.norm().clamp(min=1e-30)).item()
+    bn = {}
+    for n, r1 in p["buffers"].items():
+        r0 = initial[n].to(r1.device)
+        bp, bk = (r1 - 0.9 * r0) / 0.1, (k["buffers"][n] - 0.9 * r0) / 0.1
+        bn[n] = ((bk - bp).norm() / bp.norm().clamp(min=1e-30)).item()
+    wc, wr, wb = (min(cos, key=cos.get), max(rl2, key=rl2.get),
+                  max(bn, key=bn.get))
+    print(f"# train kernels vs plain on the card: step-1 loss terms "
+          f"{k['losses']} vs {p['losses']} (rel {max(rel):.3g}, allowed "
+          f"{LOSS_RTOL}); gradients of {len(cos)} parameters: worst cosine "
+          f"{cos[wc]:.6f} ({wc}, allowed {GRAD_COS_MIN}), worst relative "
+          f"L2 {rl2[wr]:.3g} ({wr}, allowed {GRAD_REL_L2}); BatchNorm batch "
+          f"statistics after step 1: worst relative L2 {bn[wb]:.3g} ({wb}, "
+          f"allowed {BN_REL_L2})", flush=True)
+    if not (max(rel) <= LOSS_RTOL and cos[wc] >= GRAD_COS_MIN
+            and rl2[wr] <= GRAD_REL_L2 and bn[wb] <= BN_REL_L2):
+        fail("training step with the kernels disagrees with the plain run")
 
 
 def main():
@@ -286,16 +550,12 @@ def main():
               flush=True)
 
     with phase("pipeline", LIMITS["pipeline"]):
-        for mod, attr in WRAPPERS.values():
-            getattr(mod, attr).launches = 0
+        zero_counts()
         a = run_scan(pipe, prepc, False, "kernels, cold")
         b = run_scan(pipe, prepc, True, "kernels, heatmap")
-        launches = {k: getattr(mod, attr).launches
-                    for k, (mod, attr) in WRAPPERS.items()}
-        print(f"# launches over the two scans: {launches}", flush=True)
-        missing = [k for k, n in launches.items() if n == 0]
-        if missing:
-            fail(f"kernels never launched on the main path: {missing}")
+        launches = {"pipeline": path_counts("pipeline")}
+        print(f"# launches over the two scans: {launches['pipeline']}",
+              flush=True)
         for k in ("pred", "post"):
             if not np.array_equal(a[k], b[k]):
                 fail(f"{k} differs between the host and device post rule")
@@ -318,9 +578,46 @@ def main():
         if d_pred < 0.995 or d_post < 0.995 or not same_bin:
             fail("kernel run and plain run disagree")
 
-    kernels = [{"name": k, "route": "cuda", "source": META[k][0],
-                "replaces": META[k][1], "launches": launches[k], **res[k]}
-               for k in WRAPPERS]
+    del pipe, model, prepc
+    torch.cuda.empty_cache()
+    res.update(train_kernel_phases(gen))
+    torch.cuda.empty_cache()
+
+    bench = os.path.join(ROOT, "assets", "bench_weights.ckpt.xz")
+    with phase("train", LIMITS["train"]):
+        t0 = time.perf_counter()
+        batch = train_batch(SEED, batch=st_dram_ref.TRAIN_BATCH_SIZE,
+                            size=st_dram_ref.RESAMPLE_SIZE[0],
+                            window=(st_dram_ref.WINDOWING_MIN,
+                                    st_dram_ref.WINDOWING_MAX))
+        print(f"# train batch: {batch['#image'].shape} chunks, ctss "
+              f"{batch['meta']['ctss']}, made in "
+              f"{(time.perf_counter() - t0) * 1e3:.0f} ms", flush=True)
+        zero_counts()
+        k_run = run_train("kernels", batch, bench)
+        launches["train"] = path_counts("train")
+        print(f"# launches over the {TRAIN_STEPS} training steps: "
+              f"{launches['train']}", flush=True)
+        torch.cuda.empty_cache()
+
+    with phase("train plain", LIMITS["train_plain"]):
+        print("# plain versions: f32 math, TF32 off "
+              "(cudnn.allow_tf32 = cuda.matmul.allow_tf32 = False)",
+              flush=True)
+        with plain_versions():
+            p_run = run_train("plain versions", batch, bench)
+        initial = dict(weights.load_backbone(
+            DC3D(stacking=st_dram_ref.MODEL["stacking"])).named_buffers())
+        compare_train(k_run, p_run, initial)
+
+    kernels = []
+    for k in WRAPPERS:
+        by_path = {path: launches[path][k] for path in PATHS
+                   if k in PATHS[path]}
+        kernels.append({"name": k, "route": "cuda", "source": META[k][0],
+                        "replaces": META[k][1],
+                        "launches": sum(by_path.values()),
+                        "launches_by_path": by_path, **res[k]})
     print("# kernels " + json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,30 @@
+"""Experiment settings of the port (copies of dram_tpu/configs) and the
+resolution of their method names into the port's own classes."""
+
+from __future__ import annotations
+
+import importlib
+
+# reference-style method names -> the port's callables (the JAX package's
+# dram_tpu/utils.py:_ALIASES for the names the COVID configs use)
+_ALIASES = {
+    "models.DC3D": "dram_tpu_torch.models.unet3d.DC3D",
+    "models.DC3DATGeneric": "dram_tpu_torch.models.dc3d_at.DC3DATGeneric",
+    "models.HeNorm": "dram_tpu_torch.models.initializers.HeNorm",
+    "metrics.IntRegLoss": "dram_tpu_torch.losses.interval_reg.IntRegLoss",
+    "metrics.IntRegRefineLoss": "dram_tpu_torch.losses.refine.IntRegRefineLoss",
+    "torch.optim.Adam": "dram_tpu_torch.train.trainer.adam",
+    "torch.optim.lr_scheduler.ExponentialLR":
+        "dram_tpu_torch.train.trainer.ExponentialLR",
+}
+
+
+def get_callable_by_name(name):
+    """A config's method name -> the port's callable. Names outside the
+    table must already name a dram_tpu_torch object."""
+    target = _ALIASES.get(name, name)
+    if not target.startswith("dram_tpu_torch."):
+        raise KeyError(f"method {name!r} has no counterpart in "
+                       "dram_tpu_torch")
+    module_name, _, attr = target.rpartition(".")
+    return getattr(importlib.import_module(module_name), attr)

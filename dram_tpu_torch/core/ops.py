@@ -1,11 +1,13 @@
-"""Imaging ops of the chunk-wire path: windowing, Otsu, CAM threshold and
-1-bit mask packing, on tensors (device) and host arrays.
+"""Imaging ops of the chunk-wire path (windowing, Otsu, CAM threshold and
+1-bit mask packing, on tensors and host arrays) and the masked reductions
+of the losses.
 
 Port of dram_tpu/core/ops.py (`windowing` :24, `otsu_threshold_u8` :89,
 `otsu_threshold_from_hist` :133, `otsu_threshold_u8_np` :153,
-`binary_cam_threshold` :174, `packbits_u8` :302, `unpackbits_u8_dev`
-:317, `unpackbits_np` :329). The TPU's one-hot-matmul histogram
-(`histogram256_mxu`) becomes torch.bincount.
+`binary_cam_threshold` :174, `masked_mean` :213, `gsum` :219,
+`packbits_u8` :302, `unpackbits_u8_dev` :317, `unpackbits_np` :329). The
+TPU's one-hot-matmul histogram (`histogram256_mxu`) becomes
+torch.bincount.
 """
 
 from __future__ import annotations
@@ -86,6 +88,19 @@ def binary_cam_threshold(values01, mask=None):
     u8, Otsu within `mask` (dram_tpu binary_cam_threshold, scaler 1)."""
     w = windowing(values01, from_span=(0, 1), to_span=(0, 255))
     return otsu_threshold_u8(w, mask=mask).to(torch.float32) / 255.0
+
+
+def masked_mean(x, mask, dims):
+    """sum(x * mask) / sum(mask) over `dims` with fixed shapes."""
+    m = mask.to(x.dtype)
+    return (x * m).sum(dims) / torch.clamp(m.sum(dims), min=1e-12)
+
+
+def gsum(x):
+    """Sum of every element. The JAX package's gsum adds a cross-shard
+    psum under data parallelism; the port runs on one process, where it
+    is the plain sum (the multi-device layer is ROADMAP Queue 1)."""
+    return x.sum()
 
 
 def packbits_u8(mask):

@@ -1,8 +1,11 @@
-"""Synthetic thorax scans for tests and the chip smoke run.
+"""Synthetic thorax scans and training batches for tests and the chip
+smoke run.
 
-Copy of dram_tpu/data/prepare_data.py:_synth_scan: air background, five
-lobe boxes, one bright cube lesion per lobe whose volume fraction tracks
-the lobe's severity score, and a thin vessel plane per lobe.
+`synth_scan` copies dram_tpu/data/prepare_data.py:_synth_scan: air
+background, five lobe boxes, one bright cube lesion per lobe whose volume
+fraction tracks the lobe's severity score, and a thin vessel plane per
+lobe. `train_batch` makes one collated batch of lobe chunks as the
+training data pipeline hands it to the trainer's wire packing.
 """
 
 from __future__ import annotations
@@ -49,3 +52,51 @@ def synth_scan(rng, size, n_lobes=5, lesion_severity=None):
     noise = np.tile(tile, reps)[:D, :H, :W]
     scan = (scan + noise).astype(np.int16)
     return scan, lobe, lesion, vessel, severities
+
+
+def train_batch(seed, batch=10, size=80, window=(-1000, -300)):
+    """One collated training batch of `batch` lobe chunks of size^3,
+    made with numpy from `seed`, in the form dram_tpu's data pipeline
+    gives the trainer (dram_tpu/train/trainer.py:pack_train_batch):
+
+    "#image" (B, S, S, S) f32 windowed to [0, 1] from `window` HU;
+    "#lobe_reference" u8 lobe mask (an ellipsoid); "#lesion_reference" u8
+    intensity lesion candidates (lobe voxels above -700 HU); "meta"
+    {"ctss": per-chunk scores 0..5}; "ctss_frequency" (6,) f32, the
+    batch's score frequencies (1e-5 for an absent score, as the sampler's
+    frequency_array gives them). Each chunk holds lesion blobs covering
+    about the middle of its score's ratio interval."""
+    rng = np.random.default_rng(seed)
+    shape = (batch, size, size, size)
+    axis = (np.arange(size) - (size - 1) / 2) / (size / 2)
+    z, y, x = np.meshgrid(axis, axis, axis, indexing="ij")
+    ctss = rng.integers(0, 6, batch)
+    hu = rng.normal(-850.0, 25.0, shape).astype(np.float32)
+    lobe = np.zeros(shape, np.uint8)
+    for b in range(batch):
+        r = rng.uniform(0.7, 0.95, 3)
+        inside = (z / r[0]) ** 2 + (y / r[1]) ** 2 + (x / r[2]) ** 2 < 1.0
+        lobe[b] = inside
+        hu[b][~inside] += 800.0  # soft tissue around the lobe
+        frac = (CTSS_RATIO_LB[ctss[b]] + CTSS_RATIO_UB[ctss[b]]) / 2.0
+        target = frac * inside.sum()
+        lesion = np.zeros(inside.shape, bool)
+        voxel = (2.0 / size) ** 3  # a voxel's volume in axis units
+        while lesion.sum() < target and target > 0:
+            c = rng.uniform(-0.6, 0.6, 3)
+            # a sphere of about the missing volume, at most 0.3 across
+            need = (target - lesion.sum()) * voxel
+            rad = min(0.3, max((3 * need / (4 * np.pi)) ** (1 / 3),
+                               3.0 / size)) * rng.uniform(0.7, 1.0)
+            lesion |= ((z - c[0]) ** 2 + (y - c[1]) ** 2
+                       + (x - c[2]) ** 2 < rad * rad) & inside
+        hu[b][lesion] = rng.normal(-400.0, 60.0, int(lesion.sum()))
+    lo, hi = window
+    image = (np.clip(hu, lo, hi) - lo) / (hi - lo)
+    cand = ((hu > -700.0) & (lobe > 0)).astype(np.uint8)
+    counts = np.bincount(ctss, minlength=6) / float(batch)
+    freq = np.where(counts > 0, counts, 1e-5).astype(np.float32)
+    return {"#image": image.astype(np.float32), "#lobe_reference": lobe,
+            "#lesion_reference": cand,
+            "meta": {"ctss": [int(c) for c in ctss]},
+            "ctss_frequency": freq}

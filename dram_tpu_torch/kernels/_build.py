@@ -1,10 +1,10 @@
 """On-demand build of the CUDA kernels into one shared library.
 
 Every `csrc/*.cu` file is plain CUDA C++ with `extern "C"` launchers (no
-PyTorch, pybind11 or CUTLASS headers), so each compiles with `nvcc` in
-seconds. The sources compile in parallel, one `nvcc -c` each, and one
-`nvcc -shared` links them. The library is named by a hash of the sources
-and flags, written under a temporary name and `os.replace`d into place, so
+PyTorch, pybind11 or CUTLASS headers; `csrc/*.cuh` holds device code they
+share), so each compiles with `nvcc` in seconds. The sources compile in
+parallel, one `nvcc -c` each, and one `nvcc -shared` links them. The
+library is named by a hash of the sources, headers and flags, written under a temporary name and `os.replace`d into place, so
 a killed build never leaves a half-written library behind. The wrappers
 bind it through `ctypes` and pass raw device pointers and the current
 stream.
@@ -37,8 +37,15 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 SIGNATURES = {
     "conv3x3x3_bf16": [_P, _I, _P, _I, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _P],
+    "conv3x3x3_train_bf16": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _I, _P,
+                             _I, _I, _I, _I, _P],
+    "colsum_f32": [_P, _I64, _I64, _I, _P, _P],
+    "conv3x3x3_dw_bf16": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I64, _I, _P, _P],
     "maxpool2_bf16": [_P, _P, _I64, _I64, _I64, _I64, _I64, _P],
+    "maxpool2_bwd_bf16": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
     "upsample2x_bf16": [_P, _P, _I64, _I64, _I64, _I64, _I64, _P],
+    "upsample2x_bwd_bf16": [_P, _P, _I64, _I64, _I64, _I64, _I64, _P],
     "stencil_attention_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
 }
 
@@ -46,9 +53,9 @@ _lock = threading.Lock()
 _lib = None
 
 
-def _sources():
+def _sources(suffixes=(".cu",)):
     return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
-                  if f.endswith(".cu"))
+                  if f.endswith(suffixes))
 
 
 def _nvcc():
@@ -62,7 +69,7 @@ def _nvcc():
 
 def library_path():
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources((".cu", ".cuh")):
         with open(src, "rb") as fp:
             h.update(os.path.basename(src).encode() + fp.read())
     return os.path.join(BUILD_DIR, f"libdram_kernels_{h.hexdigest()[:16]}.so")

@@ -1,4 +1,5 @@
-"""DC3D: 3-level 3-D U-Net dense-regression backbone, eval mode, NDHWC.
+"""DC3D: 3-level 3-D U-Net dense-regression backbone, NDHWC; `.eval()`
+and `.train()` switch its BatchNorms between running and batch statistics.
 
 Port of dram_tpu/models/unet3d.py:35-143: encoder of ConvPool blocks,
 bottleneck, decoder of upsample + [up, skip] blocks with early exit at

@@ -1,0 +1,4 @@
+"""Training of the port: one step of st_dram_ref's DC3D and an entry point
+that takes a few."""
+
+from .trainer import TrainStep, build_train_step, train_steps  # noqa: F401

@@ -13,7 +13,10 @@ ext type 1), so the port needs neither msgpack nor flax.
 key mapping of tests/test_reference_parity.py:186-232: conv kernels
 (kd, kh, kw, Ci, Co) become (Co, Ci, kd, kh, kw), dense kernels (in, out)
 become (out, in), BN scale/bias/mean/var become weight/bias/running_mean/
-running_var; module names are kept, joined with dots.
+running_var; module names are kept, joined with dots. `to_jax` maps the
+port's state (or its gradients, by parameter name) back into flax-named
+trees, so that tests compare by name. `load_backbone` loads the trained
+flagship's DC3D backbone (st_dram_ref's widths and names) into a DC3D.
 """
 
 from __future__ import annotations
@@ -159,3 +162,42 @@ def load_into(model, params, batch_stats):
     """Copy a flax tree into `model` (strict: every key must match)."""
     model.load_state_dict(from_jax(params, batch_stats), strict=True)
     return model
+
+
+_STAT_LEAVES = {v: k for k, v in _STAT_NAMES.items()}
+
+
+def to_jax(state):
+    """The port's tensors by name (a state_dict, or {name: grad} of the
+    parameters) -> flax (params, batch_stats) nested dicts of f32 numpy
+    arrays; the inverse of from_jax."""
+    params, batch_stats = {}, {}
+    for name, t in state.items():
+        *mods, leaf = name.split(".")
+        a = t.detach().float().cpu().numpy()
+        if leaf in _STAT_LEAVES:
+            tree, leaf = batch_stats, _STAT_LEAVES[leaf]
+        elif leaf == "weight":
+            tree = params
+            if a.ndim == 5:  # conv (Co, Ci, kd, kh, kw) -> (kd, kh, kw, Ci, Co)
+                a, leaf = a.transpose(2, 3, 4, 1, 0), "kernel"
+            elif a.ndim == 2:  # dense (out, in) -> (in, out)
+                a, leaf = a.T, "kernel"
+            else:  # BatchNorm
+                leaf = "scale"
+        elif leaf == "bias":
+            tree = params
+        else:
+            raise KeyError(f"unexpected tensor {name}")
+        for m in mods:
+            tree = tree.setdefault(m, {})
+        tree[leaf] = np.ascontiguousarray(a)
+    return params, batch_stats
+
+
+def load_backbone(model, path=DEFAULT_PATH):
+    """Copy the trained flagship's `backbone` subtree (a DC3D at
+    st_dram_ref's published widths, dram_tpu/models/dc3d_at.py:64) into
+    the DC3D `model`."""
+    params, batch_stats = load_bench_weights(path)
+    return load_into(model, params["backbone"], batch_stats["backbone"])

@@ -38,8 +38,11 @@ def test_package_imports_without_jax_or_dram_tpu():
 import pkgutil, importlib, dram_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(dram_tpu_torch.__path__,
                                                "dram_tpu_torch.")]
-for n in names:
+for n in names + ["dram_tpu_torch.train", "dram_tpu_torch.losses",
+                  "dram_tpu_torch.configs"]:
     importlib.import_module(n)
+assert {"dram_tpu_torch.train.trainer", "dram_tpu_torch.losses.refine",
+        "dram_tpu_torch.configs.st_dram_ref"} <= set(names)
 print(len(names))
 """)
     assert r.returncode == 0, r.stderr
@@ -54,7 +57,8 @@ def test_chip_smoke_imports_without_jax_or_dram_tpu():
 
 def test_cuda_sources_include_plain_cuda_headers_only():
     srcs = [f for f in os.listdir(CSRC) if f.endswith((".cu", ".cuh"))]
-    assert sorted(srcs) == ["conv3x3x3.cu", "maxpool2.cu",
+    assert sorted(srcs) == ["conv3x3x3.cu", "conv3x3x3_dw.cu",
+                            "conv_staging.cuh", "maxpool2.cu",
                             "stencil_attention.cu", "upsample2x.cu"]
     for f in srcs:
         with open(os.path.join(CSRC, f)) as fp:
@@ -63,8 +67,11 @@ def test_cuda_sources_include_plain_cuda_headers_only():
         for inc in includes:
             assert not re.match(r"(torch|ATen|c10|pybind11|cutlass|cute)",
                                 inc), f"{f} includes {inc}"
-        with open(os.path.join(CSRC, f)) as fp:
-            assert 'extern "C" int' in fp.read(), f
+            assert inc in srcs or "/" not in inc and inc.endswith(".h"), \
+                f"{f} includes {inc}"
+        if f.endswith(".cu"):
+            with open(os.path.join(CSRC, f)) as fp:
+                assert 'extern "C" int' in fp.read(), f
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -38,7 +38,8 @@ def _stack(ci, c0, c1, rng):
 
 
 def _port_stack(ci, w0, bn0, w1, bn1):
-    m = ConvStack(ci, (w0.shape[-1], w1.shape[-1]))
+    # eval: the running-statistics path (a module starts in train mode)
+    m = ConvStack(ci, (w0.shape[-1], w1.shape[-1])).eval()
     with torch.no_grad():
         m.conv_0.weight.copy_(torch.from_numpy(w0.transpose(4, 3, 0, 1, 2)))
         m.conv_1.weight.copy_(torch.from_numpy(w1.transpose(4, 3, 0, 1, 2)))

@@ -13,7 +13,9 @@ traceback and a non-zero exit:
    on the same inputs (error against the stated tolerance), then
    CUDA-event times (median of 7 after warm-up) of the kernel, the plain
    version and, where one PyTorch call computes the same function, that
-   call (timed here only; the port never calls it).
+   call (timed here only; the port never calls it). The stencil
+   attention's two backward passes also hold StencilAttentionFunction's
+   gradients against torch autograd through the plain forward.
 4. pipeline: the trained flagship DC3DATGeneric (assets/bench_weights.ckpt.xz)
    at full width on a synthetic 160x192x192 scan at anisotropic spacing:
    host prep, then process_chunks with the kernels for want_heatmap False
@@ -31,6 +33,13 @@ traceback and a non-zero exit:
    versions swapped in; step-1 loss terms, every parameter gradient
    (cosine and relative L2) and the BatchNorm statistics must agree with
    the kernel run.
+8. eval conv under grad: the CUDA eval conv raises when an operand
+   requires grad (it has no gradient) and runs under torch.no_grad().
+9. train att / train att plain: the same two phases for the flagship
+   st_dram_ref_att (DC3DATGeneric with the PCM's stencil attention, the
+   -1000..-700 HU window), started from the whole trained flagship tree;
+   the kernel run must also give every PCM and tap-head parameter a
+   non-zero, finite gradient.
 
 Prints a `{"kernels": [...]}` JSON line and, last, the device line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before it.
@@ -49,9 +58,10 @@ import torch
 import torch.nn.functional as F
 
 from dram_tpu_torch import weights
-from dram_tpu_torch.configs import st_dram_ref
+from dram_tpu_torch.configs import st_dram_ref, st_dram_ref_att
 from dram_tpu_torch.data.synth import synth_scan, train_batch
 from dram_tpu_torch.infer.fast import FastScanPipeline, prep_scan_chunks
+from dram_tpu_torch.losses.refine import pseudo_labels
 from dram_tpu_torch.kernels import (_build, conv_stack, pool, upsample,
                                     window_attention)
 from dram_tpu_torch.models import DC3D, DC3DATGeneric
@@ -59,7 +69,8 @@ from dram_tpu_torch.train import train_steps
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LIMITS = {"card": 30, "build": 180, "kernel": 60, "weights": 60,
-          "pipeline": 120, "plain": 120, "train": 300, "train_plain": 300}
+          "pipeline": 120, "plain": 120, "train": 300, "train_plain": 300,
+          "eval_conv_grad": 30, "train_att": 300, "train_att_plain": 300}
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor-core
 # and f32 CUDA-core flop/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -124,7 +135,7 @@ def check_kernel(name, kernel, plain, args, tol, library=None, work=None):
     """Hold kernel(*args) against plain(*args); time kernel, plain and the
     library call. Each may return a tensor or a tuple of them; `tol` (or
     one per output) maps a plain output to the allowed max
-    |kernel - plain|. max_abs_err is that of the first output."""
+    |kernel - plain|. max_abs_err is the largest over the outputs."""
     y = _outputs(kernel(*args))
     torch.cuda.synchronize()
     yp = _outputs(plain(*args))
@@ -149,7 +160,7 @@ def check_kernel(name, kernel, plain, args, tol, library=None, work=None):
     print(f"# {name}: ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
           f"{library_ms if library_ms is None else round(library_ms, 4)} "
           f"bound_ms {bound_ms:.4f} ({bound_by})", flush=True)
-    return {"max_abs_err": errs[0], "ms": ms, "plain_ms": plain_ms,
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
 
@@ -352,7 +363,92 @@ def train_kernel_phases(gen):
             library=lambda: torch.ops.aten.upsample_trilinear3d_backward(
                 dyl, [80, 80, 80], [10, 128, 40, 40, 40], True),
             work=lambda dx: (nbytes(dy, dx), 16.0 * dy.numel(), F32_FLOPS))
+    del dy, dyl
+    res.update(attention_backward_phases(gen))
     return res
+
+
+def attention_backward_phases(gen):
+    """The stencil attention's two backward kernels at the flagship step's
+    shape (batch 10 x 64^3, F = G = 8, f32), each against its plain
+    version, then StencilAttentionFunction's gradients against torch
+    autograd through the plain forward with the same cotangent; and the
+    forward's time at this batch.
+
+    The inputs lie on a 1/8 grid, so every dot product of the pass (the
+    logits' theta . phi, u's ybar . g) is exact in f32 in any summation
+    order: the kernel and the plain version then take the same side of
+    the relu kink, where the gradient jumps. With continuous random
+    inputs about a dozen of the 47 M logits fall within rounding of 0 and
+    the two sides may differ there by a whole step of ds."""
+    th, ph, g, yb = (torch.round(torch.randn(
+        10, 64, 64, 64, 8, generator=gen, device="cuda") * 8) / 8
+        for _ in range(4))
+    # valid (voxel, neighbour) pairs: the work of every pass is per pair
+    edges = 10 * int(window_attention.valid_masks(
+        (64, 64, 64), window_attention.KERNEL_OFFSETS).sum())
+    # f32 on both sides: summation order and exp rounding only
+    rel = lambda yp: 1e-4 * yp.abs().max().item()  # noqa: E731
+    res = {}
+    with phase("kernel stencil_attention_scal", LIMITS["kernel"]):
+        # the four statistics (r, m, denom, c) are held one by one
+        res["stencil_attention_scal"] = check_kernel(
+            "stencil_attention_scal",
+            lambda *a: window_attention.stencil_attention_scal(*a).unbind(-1),
+            lambda *a: window_attention.stencil_attention_scal_plain(
+                *a).unbind(-1),
+            (th, ph, g, yb), rel,
+            work=lambda *sc: (nbytes(th, ph, g, yb, *sc), 38.0 * edges,
+                              F32_FLOPS))
+    scal = window_attention.stencil_attention_scal_plain(th, ph, g, yb)
+    with phase("kernel stencil_attention_bwd", LIMITS["kernel"]):
+        res["stencil_attention_bwd"] = check_kernel(
+            "stencil_attention_bwd", window_attention.stencil_attention_bwd,
+            window_attention.stencil_attention_bwd_plain,
+            (th, ph, g, yb, scal), rel,
+            work=lambda *d: (nbytes(th, ph, g, yb, scal, *d), 128.0 * edges,
+                             F32_FLOPS))
+        leaves = [t.clone().requires_grad_() for t in (th, ph, g)]
+        got = torch.autograd.grad(window_attention.stencil_attention(*leaves),
+                                  leaves, yb)
+        want = torch.autograd.grad(
+            window_attention.stencil_attention_plain(*leaves), leaves, yb)
+        for name, a, b in zip(("dtheta", "dphi", "dg"), got, want):
+            err, allowed = (a - b).abs().max().item(), rel(b)
+            print(f"# StencilAttentionFunction {name} vs autograd of the "
+                  f"plain forward: max_abs_err {err:.3g} (allowed "
+                  f"{allowed:.3g})", flush=True)
+            if not err <= allowed:
+                fail(f"StencilAttentionFunction {name} disagrees with "
+                     "autograd of stencil_attention_plain")
+        del leaves, got, want
+        ms = cuda_ms(lambda: window_attention.stencil_attention(th, ph, g))
+        bound_ms, _ = bound(nbytes(th, ph, g, g), 34.0 * edges, F32_FLOPS)
+        print(f"# stencil_attention at the training batch 10 x 64^3: ms "
+              f"{ms:.4f} bound_ms {bound_ms:.4f} (bytes)", flush=True)
+    return res
+
+
+def eval_conv_grad_phase(gen):
+    """The CUDA eval conv has no gradient: with an operand that requires
+    grad it must raise, and under torch.no_grad() it must run."""
+    x = torch.randn(1, 8, 8, 8, 64, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w = (torch.randn(64, 64, 3, 3, 3, generator=gen, device="cuda")
+         * 0.05).requires_grad_()
+    s, t = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
+    try:
+        conv_stack.conv3x3x3(x, w, s, t)
+    except RuntimeError as e:
+        print(f"# eval conv with grad enabled and w.requires_grad raises: "
+              f"{e}", flush=True)
+    else:
+        fail("the CUDA eval conv returned a result without autograd "
+             "history instead of raising")
+    with torch.no_grad():
+        y = conv_stack.conv3x3x3(x, w, s, t)
+    if y.shape != (1, 8, 8, 8, 64) or not torch.isfinite(y.float()).all():
+        fail("the CUDA eval conv under torch.no_grad() did not run")
 
 
 WRAPPERS = {"conv3x3x3": (conv_stack, "conv3x3x3"),
@@ -363,7 +459,11 @@ WRAPPERS = {"conv3x3x3": (conv_stack, "conv3x3x3"),
             "conv3x3x3_dx": (conv_stack, "conv3x3x3_dx"),
             "conv3x3x3_dw": (conv_stack, "conv3x3x3_dw"),
             "maxpool2_bwd": (pool, "maxpool2_bwd"),
-            "upsample2x_bwd": (upsample, "upsample2x_bwd")}
+            "upsample2x_bwd": (upsample, "upsample2x_bwd"),
+            "stencil_attention_scal": (window_attention,
+                                       "stencil_attention_scal"),
+            "stencil_attention_bwd": (window_attention,
+                                      "stencil_attention_bwd")}
 META = {
     "conv3x3x3": ("dram_tpu_torch/kernels/csrc/conv3x3x3.cu",
                   "dram_tpu/core/pallas/fused_stack.py:305"),
@@ -383,14 +483,23 @@ META = {
                      "dram_tpu/core/pallas/pool.py:245"),
     "upsample2x_bwd": ("dram_tpu_torch/kernels/csrc/upsample2x.cu",
                        "dram_tpu/core/pallas/upsample.py:149"),
+    "stencil_attention_scal": (
+        "dram_tpu_torch/kernels/csrc/stencil_attention.cu",
+        "dram_tpu/core/pallas/window_attention.py:335"),
+    "stencil_attention_bwd": (
+        "dram_tpu_torch/kernels/csrc/stencil_attention.cu",
+        "dram_tpu/core/pallas/window_attention.py:366"),
 }
-# the kernels each path launches: the chunk-wire inference and the
-# st_dram_ref training step
+# the kernels each path launches: the chunk-wire inference, the
+# st_dram_ref training step and the flagship st_dram_ref_att training step
+TRAIN_KERNELS = ("conv3x3x3_train", "conv3x3x3_dx", "conv3x3x3_dw",
+                 "maxpool2", "maxpool2_bwd", "upsample2x", "upsample2x_bwd")
 PATHS = {"pipeline": ("conv3x3x3", "maxpool2", "upsample2x",
                       "stencil_attention"),
-         "train": ("conv3x3x3_train", "conv3x3x3_dx", "conv3x3x3_dw",
-                   "maxpool2", "maxpool2_bwd", "upsample2x",
-                   "upsample2x_bwd")}
+         "train": TRAIN_KERNELS,
+         "train_att": TRAIN_KERNELS + ("stencil_attention",
+                                       "stencil_attention_scal",
+                                       "stencil_attention_bwd")}
 
 
 @contextlib.contextmanager
@@ -444,8 +553,8 @@ def path_counts(path):
     return counts
 
 
-def run_train(label, batch, bench):
-    """TRAIN_STEPS steps of st_dram_ref from the flagship's backbone on
+def run_train(settings, label, batch, bench):
+    """TRAIN_STEPS steps of `settings` from the flagship's weights on
     `batch`; returns the step-1 loss terms, gradients and buffers."""
     first = {}
 
@@ -456,7 +565,7 @@ def run_train(label, batch, bench):
             first["buffers"] = {n: b.detach().clone()
                                 for n, b in step.model.named_buffers()}
 
-    out = train_steps(st_dram_ref, TRAIN_STEPS, [batch], device="cuda",
+    out = train_steps(settings, TRAIN_STEPS, [batch], device="cuda",
                       weights_path=bench, on_step=on_step)
     for i in range(TRAIN_STEPS):
         (reg, seg), ms = out["losses"][i], out["ms"][i]
@@ -474,14 +583,45 @@ def run_train(label, batch, bench):
     return first
 
 
-def compare_train(k, p, initial):
+def zero_in_exact_arithmetic(name):
+    """The tap heads' 1x1x1 conv biases: a train-mode BatchNorm follows
+    and subtracts the batch mean, so their gradient is zero in exact
+    arithmetic and holds only rounding."""
+    return name.startswith("reshape_") and name.endswith("conv.bias")
+
+
+def check_head_grads(run, label):
+    """Every PCM and tap-head parameter gets a non-zero, finite gradient
+    (the conv biases of zero_in_exact_arithmetic a finite one): no
+    gradient is dropped on the way to them."""
+    heads = {n: g for n, g in run["grads"].items()
+             if n.startswith(("attention_module.", "reshape_"))}
+    if len(heads) != 16:
+        fail(f"train {label}: expected 16 PCM and tap-head parameters, got "
+             f"{sorted(heads)}")
+    size = {n: g.abs().max().item() for n, g in heads.items()}
+    live = {n: v for n, v in size.items() if not zero_in_exact_arithmetic(n)}
+    low = min(live, key=live.get)
+    print(f"# train {label}: gradients of the {len(heads)} PCM and tap-head "
+          f"parameters finite; smallest largest-|g| {live[low]:.3g} ({low}); "
+          "tap-head conv biases (zero in exact arithmetic) "
+          + ", ".join(f"{n} {v:.3g}" for n, v in size.items()
+                      if zero_in_exact_arithmetic(n)), flush=True)
+    if not live[low] > 0:
+        fail(f"train {label}: zero gradient of {low}")
+
+
+def compare_train(k, p, initial, label="train"):
     """Kernel run vs plain run of the training step: step-1 loss terms,
-    every parameter gradient, and the BatchNorm batch statistics that
-    step 1 folded into the running ones (r1 = 0.9 r0 + 0.1 batch)."""
+    every parameter gradient (but those zero in exact arithmetic), and
+    the BatchNorm batch statistics that step 1 folded into the running
+    ones (r1 = 0.9 r0 + 0.1 batch)."""
     rel = [abs(a - b) / max(abs(b), 1e-30)
            for a, b in zip(k["losses"], p["losses"])]
     cos, rl2 = {}, {}
     for n, gp in p["grads"].items():
+        if zero_in_exact_arithmetic(n):
+            continue
         gk = k["grads"][n]
         cos[n] = (torch.dot(gk.flatten(), gp.flatten())
                   / (gk.norm() * gp.norm()).clamp(min=1e-30)).item()
@@ -493,16 +633,84 @@ def compare_train(k, p, initial):
         bn[n] = ((bk - bp).norm() / bp.norm().clamp(min=1e-30)).item()
     wc, wr, wb = (min(cos, key=cos.get), max(rl2, key=rl2.get),
                   max(bn, key=bn.get))
-    print(f"# train kernels vs plain on the card: step-1 loss terms "
+    print(f"# {label} kernels vs plain on the card: step-1 loss terms "
           f"{k['losses']} vs {p['losses']} (rel {max(rel):.3g}, allowed "
           f"{LOSS_RTOL}); gradients of {len(cos)} parameters: worst cosine "
           f"{cos[wc]:.6f} ({wc}, allowed {GRAD_COS_MIN}), worst relative "
           f"L2 {rl2[wr]:.3g} ({wr}, allowed {GRAD_REL_L2}); BatchNorm batch "
           f"statistics after step 1: worst relative L2 {bn[wb]:.3g} ({wb}, "
           f"allowed {BN_REL_L2})", flush=True)
+    heads = [n for n in cos if n.startswith(("attention_module.",
+                                             "reshape_"))]
+    if heads:
+        rest = [n for n in cos if n not in heads]
+        for group, names in (("PCM and tap heads", heads),
+                             ("backbone", rest)):
+            gc, gr = min(names, key=cos.get), max(names, key=rl2.get)
+            print(f"# {label} {group}: worst cosine {cos[gc]:.6f} ({gc}), "
+                  f"worst relative L2 {rl2[gr]:.3g} ({gr})", flush=True)
     if not (max(rel) <= LOSS_RTOL and cos[wc] >= GRAD_COS_MIN
             and rl2[wr] <= GRAD_REL_L2 and bn[wb] <= BN_REL_L2):
-        fail("training step with the kernels disagrees with the plain run")
+        fail(f"{label} step with the kernels disagrees with the plain run")
+
+
+def train_phases(settings, name, bench, initial_of, launches, extra=None):
+    """Phases `name` and `name plain`: TRAIN_STEPS steps of `settings`
+    with the kernels (launch counts of PATHS[name] zeroed just before,
+    read just after), the same steps with the plain versions, and the
+    gate between them. `extra(batch)` runs first in the kernel phase;
+    `initial_of()` gives the start's buffers. Returns both runs."""
+    label = name.replace("_", " ")
+    tag = label[len("train "):] + " " if label != "train" else ""
+    with phase(label, LIMITS[name]):
+        t0 = time.perf_counter()
+        batch = train_batch(SEED, batch=settings.TRAIN_BATCH_SIZE,
+                            size=settings.RESAMPLE_SIZE[0],
+                            window=(settings.WINDOWING_MIN,
+                                    settings.WINDOWING_MAX))
+        print(f"# {label} batch: {batch['#image'].shape} chunks, ctss "
+              f"{batch['meta']['ctss']}, made in "
+              f"{(time.perf_counter() - t0) * 1e3:.0f} ms", flush=True)
+        if extra is not None:
+            extra(batch)
+        zero_counts()
+        k_run = run_train(settings, tag + "kernels", batch, bench)
+        launches[name] = path_counts(name)
+        print(f"# launches over the {TRAIN_STEPS} {tag}training steps: "
+              f"{launches[name]}", flush=True)
+        torch.cuda.empty_cache()
+
+    with phase(f"{label} plain", LIMITS[name + "_plain"]):
+        print("# plain versions: f32 math, TF32 off "
+              "(cudnn.allow_tf32 = cuda.matmul.allow_tf32 = False)",
+              flush=True)
+        with plain_versions():
+            p_run = run_train(settings, tag + "plain versions", batch, bench)
+        compare_train(k_run, p_run, initial_of(), label)
+        torch.cuda.empty_cache()
+    return k_run, p_run
+
+
+def pseudo_label_count(batch, bench):
+    """Voxels the flagship's pseudo labels mark on `batch` (its dense head
+    in eval mode): the seg term's positives."""
+    params, bs = weights.load_bench_weights(bench)
+    m = weights.load_into(DC3DATGeneric(dtype=torch.bfloat16), params,
+                          bs).eval().cuda()
+    with torch.no_grad():
+        x = torch.from_numpy(batch["#image"][..., None]).cuda()
+        dense, _ = m.compute_features(x)
+        pseudo = pseudo_labels(
+            dense, torch.from_numpy(batch["#lobe_reference"][..., None]).cuda(),
+            torch.from_numpy(batch["#lesion_reference"][..., None]).cuda(),
+            torch.tensor(batch["meta"]["ctss"], device="cuda"))
+        per = pseudo.sum(dim=(1, 2, 3, 4)).long().tolist()
+    cand = batch["#lesion_reference"].reshape(len(per), -1).sum(1).tolist()
+    print(f"# pseudo-label voxels per chunk of the flagship on this batch: "
+          f"{per} (lesion candidates {cand})", flush=True)
+    if sum(per) == 0:
+        fail("the pseudo labels are empty on the training batch: the seg "
+             "term would train toward 0 only")
 
 
 def main():
@@ -584,31 +792,22 @@ def main():
     torch.cuda.empty_cache()
 
     bench = os.path.join(ROOT, "assets", "bench_weights.ckpt.xz")
-    with phase("train", LIMITS["train"]):
-        t0 = time.perf_counter()
-        batch = train_batch(SEED, batch=st_dram_ref.TRAIN_BATCH_SIZE,
-                            size=st_dram_ref.RESAMPLE_SIZE[0],
-                            window=(st_dram_ref.WINDOWING_MIN,
-                                    st_dram_ref.WINDOWING_MAX))
-        print(f"# train batch: {batch['#image'].shape} chunks, ctss "
-              f"{batch['meta']['ctss']}, made in "
-              f"{(time.perf_counter() - t0) * 1e3:.0f} ms", flush=True)
-        zero_counts()
-        k_run = run_train("kernels", batch, bench)
-        launches["train"] = path_counts("train")
-        print(f"# launches over the {TRAIN_STEPS} training steps: "
-              f"{launches['train']}", flush=True)
-        torch.cuda.empty_cache()
+    train_phases(st_dram_ref, "train", bench, lambda: dict(
+        weights.load_backbone(DC3D(stacking=st_dram_ref.MODEL["stacking"]),
+                              bench).named_buffers()), launches)
 
-    with phase("train plain", LIMITS["train_plain"]):
-        print("# plain versions: f32 math, TF32 off "
-              "(cudnn.allow_tf32 = cuda.matmul.allow_tf32 = False)",
-              flush=True)
-        with plain_versions():
-            p_run = run_train("plain versions", batch, bench)
-        initial = dict(weights.load_backbone(
-            DC3D(stacking=st_dram_ref.MODEL["stacking"])).named_buffers())
-        compare_train(k_run, p_run, initial)
+    with phase("eval conv under grad", LIMITS["eval_conv_grad"]):
+        eval_conv_grad_phase(gen)
+
+    def flagship_buffers():
+        return dict(weights.load_into(
+            DC3DATGeneric(), *weights.load_bench_weights(bench))
+            .named_buffers())
+    k_run, p_run = train_phases(
+        st_dram_ref_att, "train_att", bench, flagship_buffers, launches,
+        extra=lambda batch: pseudo_label_count(batch, bench))
+    check_head_grads(k_run, "att kernels")
+    check_head_grads(p_run, "att plain versions")
 
     kernels = []
     for k in WRAPPERS:

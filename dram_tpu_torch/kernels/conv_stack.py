@@ -114,9 +114,21 @@ def conv3x3x3_plain(x1, w, scale, shift, x2=None):
 def conv3x3x3(x1, w, scale, shift, x2=None):
     """Kernel wrapper of conv3x3x3_plain: CUDA tensors launch
     csrc/conv3x3x3.cu (bf16 activations; w is cast to bf16 in the
-    kernel's (27, Ci, Co) layout); CPU tensors take the plain version."""
+    kernel's (27, Ci, Co) layout); CPU tensors take the plain version.
+
+    The eval conv has no gradient on CUDA: with grad enabled and an
+    operand that requires grad it raises rather than return a result
+    without autograd history. Nothing trains an eval-mode stack (the
+    inference pipeline's model stage runs under torch.no_grad); a stack in
+    train mode runs ConvStackFunction."""
     if not x1.is_cuda:
         return conv3x3x3_plain(x1, w, scale, shift, x2)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x1, x2, w, scale, shift)):
+        raise RuntimeError(
+            "conv3x3x3: the CUDA eval conv has no gradient; call it under "
+            "torch.no_grad() or put the stack in train mode")
     B, D, H, W, _ = x1.shape
     C1, C2 = _check_parts("conv3x3x3", x1, x2)
     Co = w.shape[0]

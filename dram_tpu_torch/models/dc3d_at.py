@@ -1,10 +1,14 @@
-"""DC3DATGeneric: DC3D backbone + attention taps + PCM refinement, eval.
+"""DC3DATGeneric: DC3D backbone + detached attention taps + PCM
+refinement, in eval and training mode.
 
-Port of dram_tpu/models/dc3d_at.py:26-160. Selected layers (`at_layers`,
--1 meaning the raw input) are tapped, passed through 1x1x1 conv + BN +
-ReLU heads, resized to `at_spatial_size` and concatenated (1 + 2 x 8 = 17
-channels in the flagship); the dense CAM is resized to the attention
-grid, refined by the PCM and resized back. Returns (dense, refined), f32.
+Port of dram_tpu/models/dc3d_at.py:26-167. Selected layers (`at_layers`,
+-1 meaning the raw input) are tapped, detached (JAX's stop_gradient,
+:117-127: no gradient reaches the backbone through a tap), passed through
+1x1x1 conv + BN + ReLU heads, resized to `at_spatial_size` and
+concatenated (1 + 2 x 8 = 17 channels in the flagship); the dense CAM is
+resized to the attention grid, refined by the PCM and resized back.
+Returns (dense, refined), f32. `.train()` runs the heads' BatchNorm on
+batch statistics (JAX `_ReshapeHead`, :165).
 """
 
 from __future__ import annotations
@@ -69,16 +73,16 @@ class DC3DATGeneric(nn.Module):
         feats, h = bb.encoder(x)
         for idx, f in enumerate(feats):
             if idx in self.at_layers:
-                taps.append(self.reshape_heads[nc](f))
+                taps.append(self.reshape_heads[nc](f.detach()))
                 nc += 1
         xbg = bb.bottleneck(h)
         if self.n_layers in self.at_layers:
-            taps.append(self.reshape_heads[nc](xbg))
+            taps.append(self.reshape_heads[nc](xbg.detach()))
             nc += 1
         us_feats = bb.decoder(xbg, feats)
         for idx in range(1, len(us_feats)):
             if self.n_layers + idx in self.at_layers:
-                taps.append(self.reshape_heads[nc](us_feats[idx]))
+                taps.append(self.reshape_heads[nc](us_feats[idx].detach()))
                 nc += 1
         dense = bb.top(us_feats[-1], x.shape[1:4])
         taps = [resize3d(t, self.at_spatial_size) for t in taps]

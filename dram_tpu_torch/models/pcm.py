@@ -4,7 +4,10 @@ Port of dram_tpu/models/pcm.py for the shipped configuration: merge type
 'scaled_dot_product_relu', k = 3, connectivity 2, no self loop, no
 positional encoding (p_enc_dim = 0), whole volume (z0 = 0). This is the
 JAX package's use_pallas branch (:231-246): theta/phi/G dense layers, the
-stencil attention kernel, then the r dense layer, `non_local_iter` times.
+stencil attention, then the r dense layer, `non_local_iter` times. The
+attention is differentiable (window_attention.StencilAttentionFunction),
+so the same forward trains. The dense layers run in f32 where dram_tpu
+runs them in the compute dtype (bf16 in the flagship).
 `stencil_offsets` and `_valid_masks` live beside the kernel in
 dram_tpu_torch/kernels/window_attention.py.
 """

@@ -27,6 +27,7 @@ import torch
 from .. import require_cuda, weights
 from ..configs import get_callable_by_name
 from ..losses.interval_reg import DEFAULT_CTSS_FREQUENCY
+from ..models.dc3d_at import DC3DATGeneric
 from ..models.unet3d import DC3D
 
 
@@ -234,41 +235,63 @@ def _method(cfg):
     return get_callable_by_name(cfg.pop("method")), cfg
 
 
+# the DC3DATGeneric settings the port's model takes (dram_tpu's names)
+_AT_KEYS = ("at_spatial_size", "at_f_dim", "at_g_dim", "at_p_enc_dim",
+            "at_g_iter", "at_k_size", "at_merge_type", "at_self_loop",
+            "at_layers", "at_connectivity")
+
+
 def build_model(settings, dtype):
-    """DC3D from settings.MODEL (on the CPU). The port's DC3D is the
-    shipped configuration: 3x3x3 SAME convs, no dropout, 2x upsampling;
-    other values raise."""
+    """DC3D or DC3DATGeneric from settings.MODEL (on the CPU). The port's
+    backbone is the shipped one: 3x3x3 SAME convs, no dropout, 2x
+    upsampling; its PCM the shipped 'scaled_dot_product_relu' stencil
+    attention without positional encoding. Other values raise, naming
+    the ROADMAP item that ports them."""
     cfg = dict(settings.MODEL)
     cls = get_callable_by_name(cfg.pop("method"))
-    if cls is not DC3D:
+    if cls not in (DC3D, DC3DATGeneric):
         raise NotImplementedError(f"training {cls.__name__} is not ported "
                                   "(ROADMAP Queue 1)")
-    n = cfg["n_layers"]
     if (cfg.get("dropout", 0.0)
             or any(tuple(k) != (3, 3) for k in cfg.get("kernel_sizes", []))
             or any(tuple(p) != (1, 1) for p in cfg.get("padding_list", []))
             or any(f != 2 for f in cfg.get("upsample_sf", (2, 2, 2)))):
         raise NotImplementedError(
-            "only the shipped DC3D (3x3x3 SAME convs, no dropout, 2x "
-            f"upsampling) is ported, got MODEL {settings.MODEL!r}")
-    return DC3D(n_layers=n, base_ch_list=tuple(cfg["base_ch_list"]),
-                end_ch_list=tuple(cfg["end_ch_list"]),
-                out_ch=cfg.get("out_ch", 1), stacking=cfg.get("stacking", 0),
-                dtype=dtype)
+            "only the shipped DC3D backbone (3x3x3 SAME convs, no dropout, "
+            "2x upsampling) is ported (ROADMAP Queue 1 item 6), got MODEL "
+            f"{settings.MODEL!r}")
+    common = dict(n_layers=cfg["n_layers"],
+                  base_ch_list=tuple(cfg["base_ch_list"]),
+                  end_ch_list=tuple(cfg["end_ch_list"]),
+                  out_ch=cfg.get("out_ch", 1),
+                  stacking=cfg.get("stacking", 0), dtype=dtype)
+    if cls is DC3D:
+        return DC3D(**common)
+    if cfg.get("at_geo_f_dim", 0):
+        raise NotImplementedError(
+            f"at_geo_f_dim={cfg['at_geo_f_dim']}: the PCM's geo encoding is "
+            "not ported (ROADMAP Queue 1 item 6)")
+    at = {k: cfg[k] for k in _AT_KEYS if k in cfg}
+    for k in ("at_spatial_size", "at_layers"):
+        if k in at:
+            at[k] = tuple(at[k])
+    return DC3DATGeneric(**common, **at)
 
 
 def build_train_step(settings, device="cuda", weights_path=None):
     """TrainStep for `settings` on `device`: the model from MODEL with
     COMPUTE_DTYPE activations, its parameters from INITIALIZER (a
     torch.Generator seeded with RANDOM_SEED) or, with `weights_path`, the
-    trained flagship's DC3D backbone; OPTIMIZER and LOSS_FUNC from the
-    port's registry."""
+    trained flagship's tree (DC3DATGeneric: the whole tree; DC3D: its
+    backbone); OPTIMIZER and LOSS_FUNC from the port's registry."""
     device = require_cuda(device)
     dtype = torch.bfloat16 \
         if getattr(settings, "COMPUTE_DTYPE", "float32") == "bfloat16" \
         else torch.float32
     model = build_model(settings, dtype)
-    if weights_path is not None:
+    if weights_path is not None and isinstance(model, DC3DATGeneric):
+        weights.load_into(model, *weights.load_bench_weights(weights_path))
+    elif weights_path is not None:
         weights.load_backbone(model, weights_path)
     else:
         init_cls, init_cfg = _method(settings.INITIALIZER)

@@ -42,7 +42,8 @@ for n in names + ["dram_tpu_torch.train", "dram_tpu_torch.losses",
                   "dram_tpu_torch.configs"]:
     importlib.import_module(n)
 assert {"dram_tpu_torch.train.trainer", "dram_tpu_torch.losses.refine",
-        "dram_tpu_torch.configs.st_dram_ref"} <= set(names)
+        "dram_tpu_torch.configs.st_dram_ref",
+        "dram_tpu_torch.configs.st_dram_ref_att"} <= set(names)
 print(len(names))
 """)
     assert r.returncode == 0, r.stderr

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch port's st_dram_ref training step goes on
-one GPU.
+"""Where the time of the PyTorch port's training step goes on one GPU.
 
-    python3 tools/profile_torch_train.py [--warm 2] [--trace PATH]
+    python3 tools/profile_torch_train.py [--config st_dram_ref_att]
+                                         [--warm 2] [--trace PATH]
 
-Builds the step as chip_smoke.py's train phase does (DC3D at the published
-widths, bf16, the trained flagship's backbone, one synthetic batch of
-10 x 80^3 chunks from seed 0), takes `--warm` steps, then one step under
+Builds the step as chip_smoke.py's train phases do (st_dram_ref: DC3D at
+the published widths from the trained flagship's backbone; st_dram_ref_att:
+the flagship DC3DATGeneric from its whole trained tree; bf16, one
+synthetic batch of 10 x 80^3 chunks from seed 0 in the config's window),
+takes `--warm` steps, then one step under
 torch.profiler with CPU and CUDA activities. Prints the step's stage
 split (CUDA events), its device time by kernel (the port's CUDA kernels
 by name, PyTorch's own kernels grouped), the device's busy share of the
@@ -15,6 +17,7 @@ with --trace, writes the Chrome trace. Needs a CUDA device.
 """
 
 import argparse
+import importlib
 import os
 import sys
 
@@ -24,7 +27,6 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from dram_tpu_torch.configs import st_dram_ref  # noqa: E402
 from dram_tpu_torch.data.synth import train_batch  # noqa: E402
 from dram_tpu_torch.train.trainer import (batch_tensors,  # noqa: E402
                                           build_train_step)
@@ -32,7 +34,9 @@ from dram_tpu_torch.train.trainer import (batch_tensors,  # noqa: E402
 # the port's kernels (csrc/*.cu) by their __global__ names
 PORT_KERNELS = ("conv3x3x3_kernel", "conv3x3x3_dw_kernel", "colsum_kernel",
                 "maxpool2_kernel", "maxpool2_bwd_kernel",
-                "upsample2x_kernel", "upsample2x_bwd_kernel")
+                "upsample2x_kernel", "upsample2x_bwd_kernel",
+                "stencil_attention_kernel", "stencil_attention_scal_kernel",
+                "stencil_attention_bwd_kernel")
 
 
 def group_of(name):
@@ -43,7 +47,7 @@ def group_of(name):
     if "adam" in low or "multi_tensor" in low:
         return "torch optimizer (Adam)"
     if "gemm" in low or "gemv" in low or "xmma" in low:
-        return "torch matmul (1x1x1 top layer, resize)"
+        return "torch matmul (1x1x1 top layer and tap heads, resize, PCM)"
     if "reduce" in low:
         return "torch reductions (BN backward sums, losses)"
     if "copy" in low or "cat" in low:
@@ -65,18 +69,22 @@ def union_us(intervals):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", default="st_dram_ref",
+                    choices=("st_dram_ref", "st_dram_ref_att"))
     ap.add_argument("--warm", type=int, default=2)
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_train: needs a CUDA device")
-    print(torch.cuda.get_device_name(0), flush=True)
+    print(f"{torch.cuda.get_device_name(0)}: {args.config}", flush=True)
+    settings = importlib.import_module(
+        f"dram_tpu_torch.configs.{args.config}")
     step = build_train_step(
-        st_dram_ref, "cuda",
+        settings, "cuda",
         os.path.join(ROOT, "assets", "bench_weights.ckpt.xz"))
     batch = batch_tensors(train_batch(
-        0, st_dram_ref.TRAIN_BATCH_SIZE, st_dram_ref.RESAMPLE_SIZE[0],
-        (st_dram_ref.WINDOWING_MIN, st_dram_ref.WINDOWING_MAX)),
+        0, settings.TRAIN_BATCH_SIZE, settings.RESAMPLE_SIZE[0],
+        (settings.WINDOWING_MIN, settings.WINDOWING_MAX)),
         torch.device("cuda"), "u16")
     for _ in range(args.warm):
         step(**batch)

@@ -40,6 +40,16 @@ traceback and a non-zero exit:
    -1000..-700 HU window), started from the whole trained flagship tree;
    the kernel run must also give every PCM and tap-head parameter a
    non-zero, finite gradient.
+10. the unfused conv stack (st_dram_ref_att with USE_FUSED_STACK = False;
+   after the plain phase of 4-5 and the kernel phases of 3): pipeline
+   unfused / plain unfused, the scan of 4 with the unfused flagship in
+   eval mode, whose masks must agree with the plain run's and the fused
+   run's; golden, both kernel scans against dram_tpu's CPU masks of the
+   same scan (tools/make_port_golden.py), after the hashes of the prepped
+   chunk and lobe bits are held against the golden's; and (after 9)
+   train unfused / train unfused plain, the phases of 9 for the unfused
+   flagship, which runs the raw conv (Conv3dFunction) and the
+   first-maximum max-pool backward.
 
 Prints a `{"kernels": [...]}` JSON line and, last, the device line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before it.
@@ -47,6 +57,7 @@ Prints a `{"kernels": [...]}` JSON line and, last, the device line
 
 import contextlib
 import faulthandler
+import hashlib
 import json
 import os
 import subprocess
@@ -58,25 +69,31 @@ import torch
 import torch.nn.functional as F
 
 from dram_tpu_torch import weights
-from dram_tpu_torch.configs import st_dram_ref, st_dram_ref_att
+from dram_tpu_torch.configs import (st_dram_ref, st_dram_ref_att,
+                                    with_settings)
 from dram_tpu_torch.data.synth import synth_scan, train_batch
 from dram_tpu_torch.infer.fast import FastScanPipeline, prep_scan_chunks
 from dram_tpu_torch.losses.refine import pseudo_labels
-from dram_tpu_torch.kernels import (_build, conv_stack, pool, upsample,
-                                    window_attention)
+from dram_tpu_torch.kernels import (_build, conv3d, conv_stack, pool,
+                                    upsample, window_attention)
 from dram_tpu_torch.models import DC3D, DC3DATGeneric
 from dram_tpu_torch.train import train_steps
+from dram_tpu_torch.train.trainer import build_model
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LIMITS = {"card": 30, "build": 180, "kernel": 60, "weights": 60,
           "pipeline": 120, "plain": 120, "train": 300, "train_plain": 300,
-          "eval_conv_grad": 30, "train_att": 300, "train_att_plain": 300}
+          "eval_conv_grad": 30, "train_att": 300, "train_att_plain": 300,
+          "pipeline_unfused": 120, "plain_unfused": 120, "golden": 60,
+          "train_unfused": 300, "train_unfused_plain": 300}
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor-core
 # and f32 CUDA-core flop/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 SCAN_SHAPE, SPACING, SEED = (160, 192, 192), (1.25, 0.8, 0.8), 0
 SEVERITIES = [3, 4, 2, 5, 3]
 WINDOW = (-1000, -700)
+# dram_tpu's masks of that scan (tools/make_port_golden.py)
+GOLDEN = "dram_tpu_torch/golden/flagship_scan.npz"
 TRAIN_STEPS = 3
 # kernel run vs plain run of the training step on the card: step-1 loss
 # terms (relative), every parameter gradient's cosine and relative L2, and
@@ -429,6 +446,90 @@ def attention_backward_phases(gen):
     return res
 
 
+def unfused_kernel_phases(gen):
+    """The unfused stack's kernels at its step's largest shapes, batch
+    10 x 80^3: the raw conv (row 10) and its dx and dW (row 11) on us_2's
+    conv_0 [upsample 128 | skip 64] -> 64 and on ds_0's conv_1 32 -> 64;
+    the first-maximum max-pool backward on ds_0's 64 channels."""
+    def rnd(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    res = {}
+    V = 10 * 80 ** 3
+    x1, x2 = rnd(10, 80, 80, 80, 128), rnd(10, 80, 80, 80, 64)
+    w = rnd(64, 192, 3, 3, 3, dtype=torch.float32, scale=0.03)
+    xcat = torch.cat([x1, x2], -1).permute(0, 4, 1, 2, 3)  # channels_last_3d
+    wl = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+    xs = rnd(10, 80, 80, 80, 32)
+    ws = rnd(64, 32, 3, 3, 3, dtype=torch.float32, scale=0.06)
+    flops = 2.0 * V * 27 * 192 * 64
+    def check_entry(name, a, b):
+        """ds_0's 32 -> 64 shape, held against its plain version only."""
+        err = (a.float() - b.float()).abs().max().item()
+        allowed = 2 ** -7 * b.float().abs().max().item()
+        print(f"# {name} 32 -> 64: max_abs_err {err:.3g} (allowed "
+              f"{allowed:.3g})", flush=True)
+        if not err <= allowed:
+            fail(f"{name} 32 -> 64 disagrees with its plain version")
+
+    with phase("kernel conv3d", LIMITS["kernel"]):
+        check_entry("conv3d", conv3d.conv3d(xs, ws),
+                    conv3d.conv3d_plain(xs, ws))
+        res["conv3d"] = check_kernel(
+            "conv3d", lambda a, b: conv3d.conv3d(a, w, x2=b),
+            lambda a, b: conv3d.conv3d_plain(a, w, x2=b), (x1, x2),
+            bf16_tol(2 ** -7),
+            library=lambda: F.conv3d(xcat, wl, padding=1),
+            work=lambda y: (nbytes(x1, x2, y) + w.numel() * 2, flops,
+                            BF16_FLOPS))
+
+    dy = rnd(10, 80, 80, 80, 64)
+    dyl = dy.permute(0, 4, 1, 2, 3)
+    with phase("kernel conv3d_bwd", LIMITS["kernel"]):
+        # dW after its bf16 rounding, as Conv3dFunction hands it on
+        check_entry("conv3d dx", conv3d.conv3d_dx(dy, ws),
+                    conv3d.conv3d_dx_plain(dy, ws))
+        check_entry("conv3d dW", conv3d.conv3d_dw(xs, dy).to(torch.bfloat16),
+                    conv3d.conv3d_dw_plain(xs, dy).to(torch.bfloat16))
+        res["conv3d_dx"] = check_kernel(
+            "conv3d_dx", lambda g: conv3d.conv3d_dx(g, w, split=(128, 64)),
+            lambda g: conv3d.conv3d_dx_plain(g, w, split=(128, 64)), (dy,),
+            bf16_tol(2 ** -7),
+            library=lambda: torch.nn.grad.conv3d_input(
+                xcat.shape, wl, dyl, padding=1),
+            work=lambda a, b: (nbytes(dy, a, b) + w.numel() * 2, flops,
+                               BF16_FLOPS))
+        # f32 sums of the same bf16 products in another order, then both
+        # rounded to bf16: within one bf16 ulp of the largest
+        res["conv3d_dw"] = check_kernel(
+            "conv3d_dw",
+            lambda a, b, g: conv3d.conv3d_dw(a, g, x2=b).to(torch.bfloat16),
+            lambda a, b, g: conv3d.conv3d_dw_plain(a, g, x2=b).to(
+                torch.bfloat16),
+            (x1, x2, dy), bf16_tol(2 ** -7),
+            library=lambda: torch.nn.grad.conv3d_weight(
+                xcat, wl.shape, dyl, padding=1),
+            work=lambda dw: (nbytes(x1, x2, dy) + dw.numel() * 4, flops,
+                             BF16_FLOPS))
+    del x1, x2, xcat, dy, dyl, xs
+
+    # post-ReLU zeros and duplicated rows: ties of 2, 4 and 8 in windows
+    x = torch.relu(rnd(10, 80, 80, 80, 64))
+    x[:, :, ::2] = x[:, :, 1::2]
+    g = rnd(10, 40, 40, 40, 64)
+    with phase("kernel maxpool2_bwd first", LIMITS["kernel"]):
+        # no PyTorch call gives the cotangent to the first tied maximum in
+        # (dz, dy, dx) order (F.max_pool3d's backward routes to its own
+        # argmax): no library
+        res["maxpool2_bwd_first"] = check_kernel(
+            "maxpool2_bwd_first", pool.maxpool2_bwd_first,
+            pool.maxpool2_bwd_first_plain, (x, g), lambda yp: 0.0,
+            work=lambda dx: (nbytes(x, g, dx), 16.0 * x.numel(), F32_FLOPS))
+    del x, g
+    return res
+
+
 def eval_conv_grad_phase(gen):
     """The CUDA eval conv has no gradient: with an operand that requires
     grad it must raise, and under torch.no_grad() it must run."""
@@ -463,7 +564,11 @@ WRAPPERS = {"conv3x3x3": (conv_stack, "conv3x3x3"),
             "stencil_attention_scal": (window_attention,
                                        "stencil_attention_scal"),
             "stencil_attention_bwd": (window_attention,
-                                      "stencil_attention_bwd")}
+                                      "stencil_attention_bwd"),
+            "conv3d": (conv3d, "conv3d"),
+            "conv3d_dx": (conv3d, "conv3d_dx"),
+            "conv3d_dw": (conv3d, "conv3d_dw"),
+            "maxpool2_bwd_first": (pool, "maxpool2_bwd_first")}
 META = {
     "conv3x3x3": ("dram_tpu_torch/kernels/csrc/conv3x3x3.cu",
                   "dram_tpu/core/pallas/fused_stack.py:305"),
@@ -489,17 +594,34 @@ META = {
     "stencil_attention_bwd": (
         "dram_tpu_torch/kernels/csrc/stencil_attention.cu",
         "dram_tpu/core/pallas/window_attention.py:366"),
+    "conv3d": ("dram_tpu_torch/kernels/csrc/conv3x3x3.cu",
+               "dram_tpu/core/pallas/conv3d.py:186"),
+    # dx: the forward pallas_call on flipped weights, in _vjp_bwd
+    "conv3d_dx": ("dram_tpu_torch/kernels/csrc/conv3x3x3.cu",
+                  "dram_tpu/core/pallas/conv3d.py:234"),
+    "conv3d_dw": ("dram_tpu_torch/kernels/csrc/conv3x3x3_dw.cu",
+                  "dram_tpu/core/pallas/conv3d.py:250"),
+    # the VJP of flax's nn.max_pool (XLA), the unfused stack's pool
+    "maxpool2_bwd_first": ("dram_tpu_torch/kernels/csrc/maxpool2.cu",
+                           "dram_tpu/models/blocks.py:384"),
 }
 # the kernels each path launches: the chunk-wire inference, the
-# st_dram_ref training step and the flagship st_dram_ref_att training step
+# st_dram_ref training step and the flagship st_dram_ref_att training step,
+# each with the fused conv stack; the flagship's inference and training
+# step with the unfused one
 TRAIN_KERNELS = ("conv3x3x3_train", "conv3x3x3_dx", "conv3x3x3_dw",
                  "maxpool2", "maxpool2_bwd", "upsample2x", "upsample2x_bwd")
+ATTENTION_TRAIN = ("stencil_attention", "stencil_attention_scal",
+                   "stencil_attention_bwd")
 PATHS = {"pipeline": ("conv3x3x3", "maxpool2", "upsample2x",
                       "stencil_attention"),
          "train": TRAIN_KERNELS,
-         "train_att": TRAIN_KERNELS + ("stencil_attention",
-                                       "stencil_attention_scal",
-                                       "stencil_attention_bwd")}
+         "train_att": TRAIN_KERNELS + ATTENTION_TRAIN,
+         "pipeline_unfused": ("conv3d", "maxpool2", "upsample2x",
+                              "stencil_attention"),
+         "train_unfused": ("conv3d", "conv3d_dx", "conv3d_dw", "maxpool2",
+                           "maxpool2_bwd_first", "upsample2x",
+                           "upsample2x_bwd") + ATTENTION_TRAIN}
 
 
 @contextlib.contextmanager
@@ -543,13 +665,22 @@ def zero_counts():
         getattr(mod, attr).launches = 0
 
 
-def path_counts(path):
+def path_counts(path, expect=None):
     """Launch counts of `path`'s kernels since zero_counts(); fails when
-    one of them never launched."""
+    one of them never launched, when a count differs from `expect`
+    ({name: count}), or when a kernel of no path's list for `path` ran."""
     counts = {k: getattr(*WRAPPERS[k]).launches for k in PATHS[path]}
     missing = [k for k, n in counts.items() if n == 0]
     if missing:
         fail(f"kernels never launched on the {path} path: {missing}")
+    wrong = {k: (counts[k], n) for k, n in (expect or {}).items()
+             if counts[k] != n}
+    if wrong:
+        fail(f"launches on the {path} path (got, expected): {wrong}")
+    stray = {k: getattr(*WRAPPERS[k]).launches for k in WRAPPERS
+             if k not in PATHS[path] and getattr(*WRAPPERS[k]).launches}
+    if stray:
+        fail(f"kernels of another path launched on the {path} path: {stray}")
     return counts
 
 
@@ -654,12 +785,14 @@ def compare_train(k, p, initial, label="train"):
         fail(f"{label} step with the kernels disagrees with the plain run")
 
 
-def train_phases(settings, name, bench, initial_of, launches, extra=None):
+def train_phases(settings, name, bench, initial_of, launches, extra=None,
+                 expect=None):
     """Phases `name` and `name plain`: TRAIN_STEPS steps of `settings`
     with the kernels (launch counts of PATHS[name] zeroed just before,
     read just after), the same steps with the plain versions, and the
     gate between them. `extra(batch)` runs first in the kernel phase;
-    `initial_of()` gives the start's buffers. Returns both runs."""
+    `initial_of()` gives the start's buffers; `expect` the launches per
+    step. Returns both runs."""
     label = name.replace("_", " ")
     tag = label[len("train "):] + " " if label != "train" else ""
     with phase(label, LIMITS[name]):
@@ -675,7 +808,8 @@ def train_phases(settings, name, bench, initial_of, launches, extra=None):
             extra(batch)
         zero_counts()
         k_run = run_train(settings, tag + "kernels", batch, bench)
-        launches[name] = path_counts(name)
+        launches[name] = path_counts(name, {
+            k: n * TRAIN_STEPS for k, n in (expect or {}).items()})
         print(f"# launches over the {TRAIN_STEPS} {tag}training steps: "
               f"{launches[name]}", flush=True)
         torch.cuda.empty_cache()
@@ -711,6 +845,106 @@ def pseudo_label_count(batch, bench):
     if sum(per) == 0:
         fail("the pseudo labels are empty on the training batch: the seg "
              "term would train toward 0 only")
+
+
+def compare_masks(a, b, label):
+    """Mask agreement of two scans of SCAN_SHAPE: Dice of pred and post >=
+    0.995 and the same Otsu bin, the repo's gate; prints the readings and
+    the largest difference of the per-lobe ratios."""
+    d_pred, d_post = dice(a["pred"], b["pred"]), dice(a["post"], b["post"])
+    same_bin = round(a["threshold"] * 255) == round(b["threshold"] * 255)
+    d_ratio = np.abs(np.asarray(a["ratios"]) - np.asarray(b["ratios"])).max()
+    print(f"# {label}: dice pred {d_pred:.6f} post {d_post:.6f}, otsu "
+          f"{a['threshold']:.6f} vs {b['threshold']:.6f}, ratios max diff "
+          f"{d_ratio:.3g}", flush=True)
+    if d_pred < 0.995 or d_post < 0.995 or not same_bin:
+        fail(f"{label}: the masks disagree")
+
+
+def sha256(*arrays):
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def numpy_blas():
+    """numpy's version and the BLAS (with the kernel it picked) behind its
+    float32 matmuls, which the host prep's resample runs on."""
+    blas = np.show_config(mode="dicts")["Build Dependencies"]["blas"]
+    config = " ".join(str(blas.get("openblas configuration", "")).split())
+    return f"numpy {np.__version__}, {blas.get('name')} " \
+        f"{blas.get('version')} ({config})"
+
+
+def block_means(x80_bits, block=8):
+    """Means of the prepped chunk values (bf16 bits -> f32) over block^3
+    cubes: (n_lobes, 80 / block, ...) f32, the golden's fingerprint of the
+    model input."""
+    x = torch.from_numpy(np.ascontiguousarray(x80_bits).view(np.int16)) \
+        .view(torch.bfloat16).double().numpy()
+    n, d = x.shape[0], x.shape[1] // block
+    return x.reshape(n, d, block, d, block, d, block).mean(
+        axis=(2, 4, 6)).astype(np.float32)
+
+
+# the golden's chunk fingerprint may move by one HU of the HU window:
+# the NumPy prep's float32 resample is a BLAS matmul, whose rounding
+# depends on the host's BLAS kernel (+-1 HU at some iso voxels between
+# two hosts; ROADMAP.md, Queue 3)
+BLOCK_MEAN_ATOL = 1.0 / (WINDOW[1] - WINDOW[0])
+
+
+def golden_phase(draw, prepc, runs):
+    """Hold `runs` (label -> scan output) against dram_tpu's masks of the
+    same scan (GOLDEN, tools/make_port_golden.py). Fails unless this host
+    drew the golden's scan (`draw`: scan, lobe, vessel; sha256), its lobe
+    bits equal the golden's (sha256) and its chunk values agree with the
+    golden's within BLOCK_MEAN_ATOL in every 8^3 block mean (the chunk
+    bits' sha256 is printed: it differs where the host's BLAS rounds the
+    resample differently)."""
+    gold = np.load(os.path.join(ROOT, *GOLDEN.split("/")))
+    if sha256(*draw) != str(gold["draw_sha256"]):
+        fail("golden: this host drew another scan (sha256 of the synthetic "
+             "scan, lobe and vessel arrays differs from the golden's)")
+    if sha256(prepc["lobe_bits"]) != str(gold["lobe_sha256"]):
+        fail("golden: the prepped lobe bits differ from the golden's")
+    dmean = np.abs(block_means(prepc["x80_bits"])
+                   - gold["x80_block_means"]).max()
+    same = sha256(prepc["x80_bits"]) == str(gold["x80_sha256"])
+    print(f"# golden {GOLDEN} (jax {gold['jax_version']}, "
+          f"{gold['numpy_blas']}); this host: {numpy_blas()}", flush=True)
+    print(f"# golden: the same draw and lobe bits; chunk bits "
+          f"{'identical' if same else 'not bit-identical'} (sha256), "
+          f"8^3 block means within {dmean:.3g} (allowed "
+          f"{BLOCK_MEAN_ATOL:.3g})", flush=True)
+    if not dmean <= BLOCK_MEAN_ATOL:
+        fail("golden: the prepped chunks differ from the golden's")
+    n = int(np.prod(SCAN_SHAPE))
+    ref = {k: np.unpackbits(gold[f"{k}_bits"])[:n].reshape(SCAN_SHAPE)
+           .astype(bool) for k in ("pred", "post")}
+    ref["threshold"], ref["ratios"] = float(gold["threshold"]), gold["ratios"]
+    print(f"# golden: threshold {ref['threshold']:.6f} (bin "
+          f"{int(gold['otsu_bin'])}), pred voxels {int(ref['pred'].sum())}, "
+          f"post voxels {int(ref['post'].sum())}", flush=True)
+    for label, out in runs.items():
+        compare_masks(out, ref, f"{label} vs dram_tpu's golden")
+
+
+def unfused_vs_fused(f, u):
+    """Information, no gate: the unfused and the fused kernel runs of the
+    flagship step compute one function with two rounding configurations;
+    their step-1 loss terms and gradients side by side."""
+    rel = [abs(a - b) / max(abs(b), 1e-30)
+           for a, b in zip(u["losses"], f["losses"])]
+    rl2 = {n: ((u["grads"][n] - g).norm() / g.norm().clamp(min=1e-30)).item()
+           for n, g in f["grads"].items() if not zero_in_exact_arithmetic(n)}
+    worst = max(rl2, key=rl2.get)
+    print(f"# unfused vs fused kernel runs (information): step-1 loss terms "
+          f"{u['losses']} vs {f['losses']} (rel {max(rel):.3g}); gradients "
+          f"of {len(rl2)} parameters: worst relative L2 {rl2[worst]:.3g} "
+          f"({worst}), median {float(np.median(list(rl2.values()))):.3g}",
+          flush=True)
 
 
 def main():
@@ -772,23 +1006,39 @@ def main():
     with phase("plain", LIMITS["plain"]):
         with plain_versions():
             p = run_scan(pipe, prepc, False, "plain versions")
-        d_pred, d_post = dice(warm["pred"], p["pred"]), dice(warm["post"],
-                                                            p["post"])
-        same_bin = round(warm["threshold"] * 255) == round(p["threshold"]
-                                                           * 255)
-        print(f"# kernels vs plain on the card: dice pred {d_pred:.6f} post "
-              f"{d_post:.6f}, otsu {warm['threshold']:.6f} vs "
-              f"{p['threshold']:.6f}, ratios max diff "
-              f"{np.abs(warm['ratios'] - p['ratios']).max():.3g}",
-              flush=True)
         if not warm["pred"].any():
             fail("empty pred mask")
-        if d_pred < 0.995 or d_post < 0.995 or not same_bin:
-            fail("kernel run and plain run disagree")
+        compare_masks(warm, p, "kernels vs plain on the card")
 
+    unfused = with_settings(st_dram_ref_att, USE_FUSED_STACK=False)
+    with phase("pipeline unfused", LIMITS["pipeline_unfused"]):
+        upipe = FastScanPipeline(weights.load_into(
+            build_model(unfused, torch.bfloat16), params, batch_stats),
+            device="cuda")
+        zero_counts()
+        run_scan(upipe, prepc, False, "unfused kernels, cold")
+        uwarm = run_scan(upipe, prepc, False, "unfused kernels, warm")
+        launches["pipeline_unfused"] = path_counts("pipeline_unfused",
+                                                   {"conv3d": 2 * 14})
+        print(f"# launches over the two unfused scans: "
+              f"{launches['pipeline_unfused']}", flush=True)
+        compare_masks(uwarm, warm, "unfused vs fused kernels on the card")
+
+    with phase("plain unfused", LIMITS["plain_unfused"]):
+        with plain_versions():
+            up = run_scan(upipe, prepc, False, "unfused plain versions")
+        compare_masks(uwarm, up, "unfused kernels vs plain on the card")
+
+    with phase("golden", LIMITS["golden"]):
+        golden_phase((scan, lobe, vessel), prepc,
+                     {"fused kernels": warm, "unfused kernels": uwarm})
+
+    del upipe
     del pipe, model, prepc
     torch.cuda.empty_cache()
     res.update(train_kernel_phases(gen))
+    torch.cuda.empty_cache()
+    res.update(unfused_kernel_phases(gen))
     torch.cuda.empty_cache()
 
     bench = os.path.join(ROOT, "assets", "bench_weights.ckpt.xz")
@@ -808,6 +1058,16 @@ def main():
         extra=lambda batch: pseudo_label_count(batch, bench))
     check_head_grads(k_run, "att kernels")
     check_head_grads(p_run, "att plain versions")
+    del p_run
+    torch.cuda.empty_cache()
+
+    uk_run, up_run = train_phases(
+        unfused, "train_unfused", bench, flagship_buffers, launches,
+        expect={"conv3d": 14, "conv3d_dx": 13, "conv3d_dw": 14,
+                "maxpool2_bwd_first": 3})
+    check_head_grads(uk_run, "unfused kernels")
+    check_head_grads(up_run, "unfused plain versions")
+    unfused_vs_fused(k_run, uk_run)
 
     kernels = []
     for k in WRAPPERS:

@@ -4,6 +4,7 @@ resolution of their method names into the port's own classes."""
 from __future__ import annotations
 
 import importlib
+import types
 
 # reference-style method names -> the port's callables (the JAX package's
 # dram_tpu/utils.py:_ALIASES for the names the COVID configs use)
@@ -28,3 +29,15 @@ def get_callable_by_name(name):
                        "dram_tpu_torch")
     module_name, _, attr = target.rpartition(".")
     return getattr(importlib.import_module(module_name), attr)
+
+
+def with_settings(settings, **values):
+    """A copy of a settings module's upper-case names with `values` set on
+    it, e.g. with_settings(st_dram_ref_att, USE_FUSED_STACK=False): a
+    variant built in code, since the port keeps no settings file that
+    dram_tpu/configs lacks."""
+    copy = types.SimpleNamespace(**{k: getattr(settings, k)
+                                    for k in dir(settings) if k.isupper()})
+    for k, v in values.items():
+        setattr(copy, k, v)
+    return copy

@@ -43,7 +43,7 @@ SIGNATURES = {
     "conv3x3x3_dw_bf16": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I64, _I, _P, _P],
     "maxpool2_bf16": [_P, _P, _I64, _I64, _I64, _I64, _I64, _P],
-    "maxpool2_bwd_bf16": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
+    "maxpool2_bwd_bf16": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _P],
     "upsample2x_bf16": [_P, _P, _I64, _I64, _I64, _I64, _I64, _P],
     "upsample2x_bwd_bf16": [_P, _P, _I64, _I64, _I64, _I64, _I64, _P],
     "stencil_attention_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],

@@ -9,6 +9,9 @@ Port of dram_tpu/core/pallas/fused_stack.py: conv_cm (kernel _cbr_kernel)
 in its eval, training and dx uses, conv_dw_cm (kernel _dw_kernel_pro), and
 the custom VJP of fused_cbr2 (_fused_cbr2_vjp :531-689) as
 ConvStackFunction. CUDA sources: csrc/conv3x3x3.cu, csrc/conv3x3x3_dw.cu.
+The launchers launch_train, launch_dx and launch_dw are shared with the
+unfused stack's raw conv (kernels/conv3d.py); each wrapper counts its own
+launches.
 """
 
 from __future__ import annotations
@@ -169,10 +172,18 @@ def conv3x3x3_train(x1, w, x2=None, prologue=None, stats=False):
     per-block rows in colsum_f32); CPU tensors take the plain version."""
     if not x1.is_cuda:
         return conv3x3x3_train_plain(x1, w, x2, prologue, stats)
+    y, st = launch_train(x1, w, x2, prologue, stats, "conv3x3x3_train")
+    conv3x3x3_train.launches += 1
+    return y, st
+
+
+def launch_train(x1, w, x2, prologue, stats, name):
+    """One launch of conv3x3x3_train_bf16 on CUDA tensors (raw output,
+    optional prologue and statistics); the callers count it."""
     B, D, H, W, _ = x1.shape
-    C1, C2 = _check_parts("conv3x3x3_train", x1, x2)
+    C1, C2 = _check_parts(name, x1, x2)
     Co = w.shape[0]
-    wk = _kernel_weight(w, C1 + C2, C1, C2, "conv3x3x3_train", x1.device)
+    wk = _kernel_weight(w, C1 + C2, C1, C2, name, x1.device)
     ps = pt = None
     if prologue is not None:
         ps, pt = (_f32_vec(v, x1.device) for v in prologue)
@@ -186,7 +197,6 @@ def conv3x3x3_train(x1, w, x2=None, prologue=None, stats=False):
                   pt.data_ptr() if pt is not None else None, y.data_ptr(),
                   Co, None, 0, part.data_ptr() if stats else None,
                   B, D, H, W)
-    conv3x3x3_train.launches += 1
     st = _colsum(part, nblk, 2 * Co).view(2, Co) if stats else None
     return y, st
 
@@ -223,23 +233,30 @@ def conv3x3x3_dx(dy, w, split=None):
     version."""
     if not dy.is_cuda:
         return conv3x3x3_dx_plain(dy, w, split)
+    dx = launch_dx(dy, w, split, "conv3x3x3_dx")
+    conv3x3x3_dx.launches += 1
+    return dx
+
+
+def launch_dx(dy, w, split, name):
+    """One launch of conv3x3x3_train_bf16 on the flipped weights of w for
+    a CUDA cotangent dy; the callers count it."""
     B, D, H, W, Co = dy.shape
-    _build.check_operand(dy, torch.bfloat16, "conv3x3x3_dx dy")
+    _build.check_operand(dy, torch.bfloat16, f"{name} dy")
     Ci = w.shape[1]
     if w.shape[0] != Co:
-        raise ValueError(f"conv3x3x3_dx: weight {tuple(w.shape)} does not "
+        raise ValueError(f"{name}: weight {tuple(w.shape)} does not "
                          f"fit {Co} cotangent channels")
     c1, c2 = split if split is not None else (Ci, 0)
     if c1 + c2 != Ci:
-        raise ValueError(f"conv3x3x3_dx: split {split} of {Ci} channels")
-    wk = _kernel_weight(_flip_w(w), Co, Co, 0, "conv3x3x3_dx", dy.device)
+        raise ValueError(f"{name}: split {split} of {Ci} channels")
+    wk = _kernel_weight(_flip_w(w), Co, Co, 0, name, dy.device)
     y1 = torch.empty((B, D, H, W, c1), dtype=torch.bfloat16, device=dy.device)
     y2 = torch.empty((B, D, H, W, c2), dtype=torch.bfloat16,
                      device=dy.device) if c2 else None
     _build.launch("conv3x3x3_train_bf16", dy.data_ptr(), Co, None, 0,
                   wk.data_ptr(), None, None, y1.data_ptr(), c1,
                   y2.data_ptr() if c2 else None, c2, None, B, D, H, W)
-    conv3x3x3_dx.launches += 1
     return y1 if split is None else (y1, y2)
 
 
@@ -284,11 +301,20 @@ def conv3x3x3_dw(x1, dy, x2=None, prologue=None):
     version."""
     if not x1.is_cuda:
         return conv3x3x3_dw_plain(x1, dy, x2, prologue)
+    dw = launch_dw(x1, dy, x2, prologue, "conv3x3x3_dw")
+    conv3x3x3_dw.launches += 1
+    return dw
+
+
+def launch_dw(x1, dy, x2, prologue, name):
+    """One launch of conv3x3x3_dw_bf16 (and its colsum_f32 passes) on CUDA
+    tensors: the f32 (Co, Ci, 3, 3, 3) weight gradient; the callers count
+    it."""
     B, D, H, W, _ = x1.shape
-    C1, C2 = _check_parts("conv3x3x3_dw", x1, x2)
-    _build.check_operand(dy, torch.bfloat16, "conv3x3x3_dw dy")
+    C1, C2 = _check_parts(name, x1, x2)
+    _build.check_operand(dy, torch.bfloat16, f"{name} dy")
     if tuple(dy.shape[:4]) != (B, D, H, W):
-        raise ValueError(f"conv3x3x3_dw: dy {tuple(dy.shape)} does not fit "
+        raise ValueError(f"{name}: dy {tuple(dy.shape)} does not fit "
                          f"x {tuple(x1.shape)}")
     Ci, Co = C1 + C2, dy.shape[-1]
     ps = pt = None
@@ -303,7 +329,6 @@ def conv3x3x3_dw(x1, dy, x2=None, prologue=None):
                   ps.data_ptr() if ps is not None else None,
                   pt.data_ptr() if pt is not None else None, dy.data_ptr(),
                   Co, B, D, H, W, kchunk, nsplit, part.data_ptr())
-    conv3x3x3_dw.launches += 1
     dw = _colsum(part, nsplit, M * Co) if nsplit > 1 else part[0]
     return dw.view(3, 3, 3, Ci, Co).permute(4, 3, 0, 1, 2).contiguous()
 

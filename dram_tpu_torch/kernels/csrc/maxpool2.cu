@@ -2,7 +2,9 @@
 //
 // Replaces: dram_tpu/core/pallas/pool.py:maxpool2_flat (forward kernel in
 // _fwd_call), reached through dram_tpu/core/pallas/cm.py:maxpool2_cm, and
-// its backward pool.py:_mp_vjp_bwd (kernel _bwd_kernel :145).
+// its backward pool.py:_mp_vjp_bwd (kernel _bwd_kernel :145); in its
+// first-maximum mode, the VJP of flax's nn.max_pool on the unfused stack
+// (dram_tpu/models/blocks.py:384).
 //
 // Bound on the H100: bytes. Each output element reads 8 inputs once and
 // the op does one compare per input, far below the card's compute/byte
@@ -28,6 +30,13 @@
 // the tie count in f32 on exact bf16 values, and writes the 8 dx rows;
 // g / count is formed in f32 and the product rounded once, as the TPU
 // kernel does (pool.py:176-180).
+//
+// First-maximum mode (first != 0): all of g goes to the FIRST window
+// position, in row-major (dz, dy, dx) order, that equals the maximum, and
+// 0 to the others. That is the VJP of XLA's reduce-window max
+// (select-and-scatter with a >= select), which flax's nn.max_pool takes on
+// the JAX package's unfused conv stack. g is copied, not divided, so the
+// result is exact. Same thread layout and bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,7 +86,7 @@ __global__ void maxpool2_bwd_kernel(const __nv_bfloat16* __restrict__ x,
                                     const __nv_bfloat16* __restrict__ g,
                                     __nv_bfloat16* __restrict__ dx, int64_t B,
                                     int64_t D, int64_t H, int64_t W,
-                                    int64_t C) {
+                                    int64_t C, int first) {
   const int64_t Do = D / 2, Ho = H / 2, Wo = W / 2, Cg = C / 8;
   const int64_t total = B * Do * Ho * Wo * Cg;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
@@ -92,6 +101,7 @@ __global__ void maxpool2_bwd_kernel(const __nv_bfloat16* __restrict__ x,
     const int64_t zo = v % Do;
     const int64_t b = v / Do;
     float e[8][8], m[8], cnt[8];
+    int pick[8];  // first window position at the maximum
 #pragma unroll
     for (int k = 0; k < 8; ++k) m[k] = -INFINITY;
 #pragma unroll
@@ -108,17 +118,25 @@ __global__ void maxpool2_bwd_kernel(const __nv_bfloat16* __restrict__ x,
       }
     }
 #pragma unroll
-    for (int k = 0; k < 8; ++k) cnt[k] = 0.f;
+    for (int k = 0; k < 8; ++k) {
+      cnt[k] = 0.f;
+      pick[k] = 8;
+    }
 #pragma unroll
     for (int t = 0; t < 8; ++t)
 #pragma unroll
-      for (int k = 0; k < 8; ++k) cnt[k] += e[t][k] == m[k] ? 1.f : 0.f;
+      for (int k = 0; k < 8; ++k) {
+        const bool tie = e[t][k] == m[k];
+        cnt[k] += tie ? 1.f : 0.f;
+        if (tie && pick[k] == 8) pick[k] = t;
+      }
     const uint4 graw = *reinterpret_cast<const uint4*>(g + i * 8);
     const __nv_bfloat16* gv = reinterpret_cast<const __nv_bfloat16*>(&graw);
     float share[8];
 #pragma unroll
     for (int k = 0; k < 8; ++k)
-      share[k] = __bfloat162float(gv[k]) / fmaxf(cnt[k], 1.f);
+      share[k] = first ? __bfloat162float(gv[k])
+                       : __bfloat162float(gv[k]) / fmaxf(cnt[k], 1.f);
 #pragma unroll
     for (int t = 0; t < 8; ++t) {
       const int64_t z = 2 * zo + (t >> 2), yy = 2 * yo + ((t >> 1) & 1),
@@ -127,8 +145,10 @@ __global__ void maxpool2_bwd_kernel(const __nv_bfloat16* __restrict__ x,
       uint4 out;
       __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(&out);
 #pragma unroll
-      for (int k = 0; k < 8; ++k)
-        o[k] = __float2bfloat16(e[t][k] == m[k] ? share[k] : 0.f);
+      for (int k = 0; k < 8; ++k) {
+        const bool sel = first ? t == pick[k] : e[t][k] == m[k];
+        o[k] = __float2bfloat16(sel ? share[k] : 0.f);
+      }
       *reinterpret_cast<uint4*>(dx + dst) = out;
     }
   }
@@ -141,16 +161,18 @@ int grid_blocks(int64_t total, int threads) {
 
 }  // namespace
 
-// dx (B, D, H, W, C) from x (same shape) and the pooled cotangent g
+// dx (B, D, H, W, C) from x (same shape) and the pooled cotangent g;
+// first = 0 splits g evenly over tied maxima, first = 1 gives it to the
+// first maximum in (dz, dy, dx) order
 extern "C" int maxpool2_bwd_bf16(const void* x, const void* g, void* dx,
                                  int64_t B, int64_t D, int64_t H, int64_t W,
-                                 int64_t C, void* stream) {
+                                 int64_t C, int first, void* stream) {
   const int64_t total = B * (D / 2) * (H / 2) * (W / 2) * (C / 8);
   if (total == 0) return 0;
   maxpool2_bwd_kernel<<<grid_blocks(total, 256), 256, 0,
                         (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (const __nv_bfloat16*)g, (__nv_bfloat16*)dx,
-      B, D, H, W, C);
+      B, D, H, W, C, first);
   return (int)cudaGetLastError();
 }
 

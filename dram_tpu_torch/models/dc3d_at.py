@@ -8,7 +8,8 @@ Port of dram_tpu/models/dc3d_at.py:26-167. Selected layers (`at_layers`,
 concatenated (1 + 2 x 8 = 17 channels in the flagship); the dense CAM is
 resized to the attention grid, refined by the PCM and resized back.
 Returns (dense, refined), f32. `.train()` runs the heads' BatchNorm on
-batch statistics (JAX `_ReshapeHead`, :165).
+batch statistics (JAX `_ReshapeHead`, :165). `fused_stack` goes to the
+backbone only; the tap heads are the same on both paths.
 """
 
 from __future__ import annotations
@@ -42,14 +43,15 @@ class DC3DATGeneric(nn.Module):
                  at_g_dim=8, at_p_enc_dim=0, at_g_iter=1, at_k_size=3,
                  at_merge_type="scaled_dot_product_relu",
                  at_self_loop=False, at_layers=(-1, 0, 1),
-                 at_connectivity=2, stacking=3, dtype=torch.float32):
+                 at_connectivity=2, stacking=3, dtype=torch.float32,
+                 fused_stack=True):
         super().__init__()
         self.n_layers = n_layers
         self.at_layers = tuple(at_layers)
         self.at_spatial_size = tuple(at_spatial_size)
         self.dtype = dtype
         self.backbone = DC3D(n_layers, base_ch_list, end_ch_list, out_ch,
-                             stacking, dtype=dtype)
+                             stacking, dtype=dtype, fused_stack=fused_stack)
         # encoder taps see end[idx], the bottleneck end[n], decoder
         # output idx end[n + idx]: one head per tapped layer, in tap order
         tap_ch = [end_ch_list[l] for l in sorted(self.at_layers) if l != -1]

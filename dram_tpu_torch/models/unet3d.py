@@ -5,6 +5,8 @@ Port of dram_tpu/models/unet3d.py:35-143: encoder of ConvPool blocks,
 bottleneck, decoder of upsample + [up, skip] blocks with early exit at
 `stacking`, 1x1x1 top layer and an align-corners resize back to the input
 size (:130-135). Stages are methods so DC3DATGeneric can tap them.
+`fused_stack` is the JAX package's use_fused_stack: every conv stack runs
+fused (True) or unfused (False; models/blocks.py).
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ class DC3D(nn.Module):
     def __init__(self, n_layers=3,
                  base_ch_list=(32, 64, 128, 256, 256, 128, 64),
                  end_ch_list=(64, 128, 256, 512, 256, 128, 64),
-                 out_ch=1, stacking=0, dtype=torch.float32):
+                 out_ch=1, stacking=0, dtype=torch.float32,
+                 fused_stack=True):
         super().__init__()
         self.n_layers = n_layers
         self.dtype = dtype
@@ -31,12 +34,13 @@ class DC3D(nn.Module):
         n_us = stacking if 0 <= stacking < n else n
         for i in range(n):
             self.add_module(f"ds_{i}", ConvPoolBlock5d(
-                ins[i], (base_ch_list[i], end[i])))
-        self.bg = ConvBlock5d(end[n - 1], (base_ch_list[n], end[n]))
+                ins[i], (base_ch_list[i], end[i]), fused_stack))
+        self.bg = ConvBlock5d(end[n - 1], (base_ch_list[n], end[n]),
+                              fused_stack)
         for i in range(n_us):
             self.add_module(f"us_{i}", UpsampleConvBlock5d(
                 end[n + i] + end[n - 1 - i],
-                (base_ch_list[n + 1 + i], end[n + 1 + i])))
+                (base_ch_list[n + 1 + i], end[n + 1 + i]), fused_stack))
         self.ds_modules = [getattr(self, f"ds_{i}") for i in range(n)]
         self.us_modules = [getattr(self, f"us_{i}") for i in range(n_us)]
         self.top_layer = Conv1x1(end[n + n_us], out_ch)

@@ -246,7 +246,15 @@ def build_model(settings, dtype):
     backbone is the shipped one: 3x3x3 SAME convs, no dropout, 2x
     upsampling; its PCM the shipped 'scaled_dot_product_relu' stencil
     attention without positional encoding. Other values raise, naming
-    the ROADMAP item that ports them."""
+    the ROADMAP item that ports them.
+
+    settings.USE_FUSED_STACK (the JAX trainer's name, trainer.py:293-311)
+    chooses the fused or the unfused conv stack for the training and the
+    eval model alike; it defaults to True, the counterpart of the JAX
+    package's accelerator default. USE_PALLAS_CONV only chooses which
+    implementation the JAX package runs for the unfused stack's conv (its
+    Pallas kernel or XLA's); the port runs its own kernel either way
+    (kernels/conv3d.py), so it reads no such setting."""
     cfg = dict(settings.MODEL)
     cls = get_callable_by_name(cfg.pop("method"))
     if cls not in (DC3D, DC3DATGeneric):
@@ -264,7 +272,9 @@ def build_model(settings, dtype):
                   base_ch_list=tuple(cfg["base_ch_list"]),
                   end_ch_list=tuple(cfg["end_ch_list"]),
                   out_ch=cfg.get("out_ch", 1),
-                  stacking=cfg.get("stacking", 0), dtype=dtype)
+                  stacking=cfg.get("stacking", 0), dtype=dtype,
+                  fused_stack=bool(getattr(settings, "USE_FUSED_STACK",
+                                           True)))
     if cls is DC3D:
         return DC3D(**common)
     if cfg.get("at_geo_f_dim", 0):

@@ -12,13 +12,13 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
+from _torch_port_slice import NARROW
+from _torch_port_slice import flat as _flat
+from _torch_port_slice import two_train_steps_match_jax
 
 from dram_tpu.core.pallas.window_attention import stencil_attention as jax_att
-from dram_tpu.losses.refine import IntRegRefineLoss as JaxRefineLoss
-from dram_tpu.models import DC3DATGeneric as JaxDC3DATGeneric
 from dram_tpu.models.pcm import PCM as JaxPCM
 from dram_tpu.models.pcm import _masked_softmax, _shift, _valid_masks
 from dram_tpu.models.pcm import stencil_offsets as jax_offsets
@@ -28,17 +28,11 @@ from dram_tpu_torch.configs import get_callable_by_name
 from dram_tpu_torch.configs import st_dram_ref_att as cfg
 from dram_tpu_torch.data.synth import train_batch
 from dram_tpu_torch.kernels import window_attention as wa
-from dram_tpu_torch.losses.refine import IntRegRefineLoss
 from dram_tpu_torch.models import DC3DATGeneric
 from dram_tpu_torch.models.pcm import PCM
 from dram_tpu_torch.train import trainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# st_dram_ref's widths / 8, the flagship's attention at a 16^3 grid
-NARROW = dict(n_layers=3, stacking=3, base_ch_list=(4, 8, 16, 32, 32, 16, 8),
-              end_ch_list=(8, 16, 32, 64, 32, 16, 8))
-AT = dict(at_spatial_size=(16, 16, 16), at_f_dim=8, at_g_dim=8,
-          at_layers=(-1, 0, 1))
 # f32 on the port's side against f32 (Pallas interpret, XLA twin) on
 # JAX's: summation order and exp rounding only, ~1e-6 of O(1) values
 ATT_RTOL, ATT_ATOL = 1e-5, 2e-5
@@ -48,14 +42,6 @@ def _att_inputs(shape, seed):
     rng = np.random.default_rng(seed)
     return [rng.normal(size=shape + (8,)).astype(np.float32)
             for _ in range(4)]
-
-
-def _flat(tree, prefix=()):
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            yield from _flat(v, prefix + (k,))
-        else:
-            yield "/".join(prefix + (k,)), np.asarray(v)
 
 
 class TestAttentionBackward:
@@ -177,35 +163,13 @@ class TestPCMGradients:
                                        err_msg=k)
 
 
-def _close(got, want, rtol, atol_frac, what):
-    for k, w in want.items():
-        np.testing.assert_allclose(got[k], w, rtol=rtol,
-                                   atol=atol_frac * max(np.abs(w).max(), 1e-30),
-                                   err_msg=f"{what} {k}")
-
-
-# The tap heads' 1x1x1 conv biases feed a train-mode BatchNorm, which
-# subtracts the batch mean: their gradient is zero in exact arithmetic, and
-# each side holds only its own rounding (f32 ~1e-11, float64 ~1e-19).
-def _zero_grad_key(k):
-    return k.startswith("reshape_") and k.endswith("conv/bias")
-
-
 class TestSlice:
     def test_two_train_steps_match_jax(self):
         """Two whole TrainSteps of a narrow DC3DATGeneric (f32; the attention
         through StencilAttentionFunction, the taps detached) against JAX's
-        DC3DATGeneric train step (XLA path, IntRegRefineLoss,
-        LOSS_FACTORS, optax adam) in float64, as
-        tests/test_torch_port_train.py::TestSlice holds the DC3D: loss
-        terms (rtol 1e-4), gradients, updated parameters and batch
-        statistics (5e-3 of each tensor's largest value), the update
-        itself (optax's adam on the port's gradients to 1e-6, JAX's update
-        to 5e-3 relative L2 per tensor), including attention_module and
-        reshape_*. The tap heads' conv biases, whose gradient is zero in
-        exact arithmetic, start non-zero here, and their gradients are held
-        below 1e-6 of their conv weight's instead (so is their Adam step:
-        below 5% of lr, since |g| << Adam's eps).
+        DC3DATGeneric train step in float64, as
+        tests/test_torch_port_train.py::TestSlice holds the DC3D
+        (_torch_port_slice.two_train_steps_match_jax gives the checks).
 
         The batch is TestSlice's (window -1000..-300 HU). At the flagship's
         -700 HU window three quarters of each chunk clip to one constant,
@@ -213,112 +177,7 @@ class TestSlice:
         random cotangent on the dense head, JAX's own f32 step is ~60% off
         its float64 one and the port's f32 step 0.6-1.2%, so no f32
         implementation holds 5e-3 there."""
-        batch = train_batch(1, batch=2, size=32)
-        packed = trainer.pack_train_batch(batch)
-        freq = batch["ctss_frequency"]
-        factors = cfg.LOSS_FACTORS
-        jm32 = JaxDC3DATGeneric(train=True, **NARROW, **AT)
-        v = jax.jit(jm32.init)(jax.random.PRNGKey(0),
-                               jnp.asarray(packed["images"][:1]))
-        rng = np.random.default_rng(2)
-        v = jax.tree_util.tree_map_with_path(
-            lambda path, a: (rng.normal(size=a.shape) * 0.1).astype(np.float32)
-            if _zero_grad_key("/".join(p.key for p in path[1:]))
-            else np.asarray(a), dict(v))
-        model = weights.load_into(DC3DATGeneric(**NARROW, **AT),
-                                  v["params"], v["batch_stats"])
-        lr = cfg.OPTIMIZER["lr"]
-        step = trainer.TrainStep(
-            model, IntRegRefineLoss(band_width=1e-2, smoothing=0.1),
-            trainer.adam(model.parameters(), lr=lr), factors)
-        tb = trainer.batch_tensors(batch, torch.device("cpu"))
-
-        with jax.enable_x64(True):
-            f64 = jnp.float64
-            jm = JaxDC3DATGeneric(train=True, dtype=f64, **NARROW, **AT)
-            params, bs = jax.tree_util.tree_map(
-                lambda a: jnp.asarray(a, f64), (v["params"],
-                                                v["batch_stats"]))
-            jloss = JaxRefineLoss(**{k: val for k, val in
-                                     cfg.LOSS_FUNC.items() if k != "method"})
-            tx = optax.adam(lr)
-            opt_state = tx.init(params)
-
-            @jax.jit
-            def jstep(params, bs, opt_state, images, lobes, lesions, ctss):
-                def loss_fn(p):
-                    carry = {"bs": bs}
-
-                    def model_fn(im, lo):
-                        out, mut = jm.apply({"params": p, "batch_stats":
-                                             carry["bs"]}, im, lo,
-                                            mutable=["batch_stats"])
-                        carry["bs"] = mut["batch_stats"]
-                        return out
-                    losses = jloss(model_fn, images, lobes, lesions, ctss,
-                                   ctss_frequency=jnp.asarray(freq, f64),
-                                   sample_weight=jnp.ones(images.shape[0],
-                                                          f64))
-                    total = sum(l * f for l, f in zip(losses, factors))
-                    return total, (jnp.stack(losses), carry["bs"])
-                (_, (losses, new_bs)), grads = jax.value_and_grad(
-                    loss_fn, has_aux=True)(params)
-                updates, new_opt = tx.update(grads, opt_state, params)
-                return (optax.apply_updates(params, updates), new_bs,
-                        new_opt, losses, grads)
-
-            jargs = [jnp.asarray(packed[k], f64) for k in
-                     ("images", "lobes", "lesions")]
-            jargs.append(jnp.asarray(packed["ctss"]))
-            ref_tx = optax.adam(lr)
-            ref_state = ref_tx.init(weights.to_jax(
-                {n: p.detach() for n, p in model.named_parameters()})[0])
-            for it in range(2):
-                jp0 = params
-                tp0, _ = weights.to_jax({n: p.detach().clone() for n, p in
-                                         model.named_parameters()})
-                params, bs, opt_state, jl, jg = jstep(params, bs, opt_state,
-                                                      *jargs)
-                out = step(**tb)
-                np.testing.assert_allclose(out["losses"].numpy(),
-                                           np.asarray(jl), rtol=1e-4,
-                                           err_msg=f"step {it}")
-                grads, _ = weights.to_jax({n: p.grad for n, p in
-                                           model.named_parameters()})
-                g, jgf = dict(_flat(grads)), dict(_flat(jg))
-                assert set(g) == set(jgf)
-                assert any(k.startswith("attention_module/") for k in g)
-                for k in [k for k in jgf if _zero_grad_key(k)]:
-                    wk = k[:-len("bias")] + "kernel"
-                    for side in (g, jgf):
-                        assert np.abs(side[k]).max() <= \
-                            1e-6 * np.abs(side[wk]).max(), f"step {it} {k}"
-                _close(g, {k: w for k, w in jgf.items()
-                           if not _zero_grad_key(k)}, 5e-3, 5e-3,
-                       f"step {it} grad")
-                for k, w in g.items():
-                    if not _zero_grad_key(k):
-                        assert np.abs(w).max() > 0, f"step {it} grad {k}"
-                got_p, got_bs = weights.to_jax(model.state_dict())
-                _close(dict(_flat(got_p)), dict(_flat(params)), 5e-3, 5e-3,
-                       f"step {it} param")
-                upd, ref_state = ref_tx.update(grads, ref_state, tp0)
-                _close(dict(_flat(got_p)),
-                       dict(_flat(optax.apply_updates(tp0, upd))), 1e-6,
-                       1e-6, f"step {it} optax update")
-                tu = dict(_flat(jax.tree_util.tree_map(np.subtract, got_p,
-                                                       tp0)))
-                ju = dict(_flat(jax.tree_util.tree_map(np.subtract, params,
-                                                       jp0)))
-                for k, w in ju.items():
-                    if _zero_grad_key(k):
-                        assert np.abs(tu[k]).max() <= 0.05 * lr, \
-                            f"step {it} update {k}"
-                        continue
-                    rel = np.linalg.norm(tu[k] - w) / np.linalg.norm(w)
-                    assert rel <= 5e-3, f"step {it} update {k}: {rel}"
-                _close(dict(_flat(got_bs)), dict(_flat(bs)), 5e-3, 5e-3,
-                       f"step {it} batch_stats")
+        two_train_steps_match_jax(fused_stack=True)
 
     def test_train_steps_entry_point(self):
         """train_steps builds DC3DATGeneric from the port's st_dram_ref_att

@@ -2,11 +2,13 @@
 """Where the time of the PyTorch port's training step goes on one GPU.
 
     python3 tools/profile_torch_train.py [--config st_dram_ref_att]
-                                         [--warm 2] [--trace PATH]
+                                         [--unfused] [--warm 2]
+                                         [--trace PATH]
 
 Builds the step as chip_smoke.py's train phases do (st_dram_ref: DC3D at
 the published widths from the trained flagship's backbone; st_dram_ref_att:
-the flagship DC3DATGeneric from its whole trained tree; bf16, one
+the flagship DC3DATGeneric from its whole trained tree; --unfused sets
+USE_FUSED_STACK = False, the unfused conv stack; bf16, one
 synthetic batch of 10 x 80^3 chunks from seed 0 in the config's window),
 takes `--warm` steps, then one step under
 torch.profiler with CPU and CUDA activities. Prints the step's stage
@@ -27,6 +29,7 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+from dram_tpu_torch.configs import with_settings  # noqa: E402
 from dram_tpu_torch.data.synth import train_batch  # noqa: E402
 from dram_tpu_torch.train.trainer import (batch_tensors,  # noqa: E402
                                           build_train_step)
@@ -49,7 +52,7 @@ def group_of(name):
     if "gemm" in low or "gemv" in low or "xmma" in low:
         return "torch matmul (1x1x1 top layer and tap heads, resize, PCM)"
     if "reduce" in low:
-        return "torch reductions (BN backward sums, losses)"
+        return "torch reductions (BN statistics and backward sums, losses)"
     if "copy" in low or "cat" in low:
         return "torch copies / casts"
     return "torch elementwise (BN affine / backward, losses, grad adds)"
@@ -71,14 +74,19 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", default="st_dram_ref",
                     choices=("st_dram_ref", "st_dram_ref_att"))
+    ap.add_argument("--unfused", action="store_true",
+                    help="USE_FUSED_STACK = False (the unfused conv stack)")
     ap.add_argument("--warm", type=int, default=2)
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_train: needs a CUDA device")
-    print(f"{torch.cuda.get_device_name(0)}: {args.config}", flush=True)
+    print(f"{torch.cuda.get_device_name(0)}: {args.config}"
+          f"{' unfused' if args.unfused else ''}", flush=True)
     settings = importlib.import_module(
         f"dram_tpu_torch.configs.{args.config}")
+    if args.unfused:
+        settings = with_settings(settings, USE_FUSED_STACK=False)
     step = build_train_step(
         settings, "cuda",
         os.path.join(ROOT, "assets", "bench_weights.ckpt.xz"))

@@ -3,6 +3,7 @@
 deliberately broken copies of them, on one NVIDIA GPU.
 
     python3 tools/train_gate_mutants.py [--config st_dram_ref_att]
+                                        [--unfused]
 
 For each variant the script copies dram_tpu_torch/ and chip_smoke.py
 into a temporary directory, breaks one line of a CUDA source there (the
@@ -23,6 +24,14 @@ Variants of st_dram_ref_att (the flagship, the attention kernels):
 - dphi1: the attention gradient pass drops the -o contribution of one of
   the 18 offsets, (-1, -1, 0), to dphi;
 - c_undiv: the statistics pass leaves c undivided by denom.
+
+Variants of st_dram_ref_att with --unfused (USE_FUSED_STACK = False: the
+raw conv and its dW, the first-maximum max-pool backward):
+
+- sound: the tree as it is;
+- dw64: as above, the weight-gradient kernel skips every 64th voxel of K;
+- tie_last: the first-maximum pool backward gives the cotangent to the
+  LAST tied maximum of each window.
 """
 
 import argparse
@@ -45,10 +54,17 @@ ATT_VARIANTS = {
               "dph[c] += (k == 1 ? 0.f : ds2) * ti[c];"),
     "c_undiv": (SA, C_LINE, "    const float c = num;"),
 }
+DW64 = ("conv3x3x3_dw.cu", DW_LINE,
+        "    const bool vok = v < kend && (v & 63) != 0;")
+PICK_LINE = "        if (tie && pick[k] == 8) pick[k] = t;"
+UNFUSED_VARIANTS = {
+    "sound": None,
+    "dw64": DW64,
+    "tie_last": ("maxpool2.cu", PICK_LINE, "        if (tie) pick[k] = t;"),
+}
 VARIANTS = {
     "sound": None,
-    "dw64": ("conv3x3x3_dw.cu", DW_LINE,
-             "    const bool vok = v < kend && (v & 63) != 0;"),
+    "dw64": DW64,
     "dw8": ("conv3x3x3_dw.cu", DW_LINE,
             "    const bool vok = v < kend && (v & 7) != 0;"),
     "st64": ("conv3x3x3.cu", ST_LINE, "      if (m0 + r < V && r != 0) {"),
@@ -56,9 +72,9 @@ VARIANTS = {
 LIMIT_S = 300
 
 
-def read_gate(config):
+def read_gate(config, unfused):
     """Run in a copy's directory: the train gate's readings of that
-    copy for `config`."""
+    copy for `config` (with USE_FUSED_STACK = False when `unfused`)."""
     sys.path.insert(0, os.getcwd())
     import importlib
 
@@ -66,6 +82,7 @@ def read_gate(config):
 
     import chip_smoke as cs
     from dram_tpu_torch import weights
+    from dram_tpu_torch.configs import with_settings
     from dram_tpu_torch.data.synth import train_batch
     from dram_tpu_torch.kernels import _build
     from dram_tpu_torch.models import DC3D, DC3DATGeneric
@@ -73,6 +90,8 @@ def read_gate(config):
     if not cs.__file__.startswith(os.getcwd()):
         raise SystemExit(f"imported {cs.__file__}, not the copy's")
     settings = importlib.import_module(f"dram_tpu_torch.configs.{config}")
+    if unfused:
+        settings = with_settings(settings, USE_FUSED_STACK=False)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.load()
@@ -82,7 +101,7 @@ def read_gate(config):
                         window=(settings.WINDOWING_MIN,
                                 settings.WINDOWING_MAX))
     att = config == "st_dram_ref_att"
-    tag = "att " if att else ""
+    tag = ("unfused " if unfused else "att ") if att else ""
     k_run = cs.run_train(settings, tag + "kernels", batch, bench)
     torch.cuda.empty_cache()
     with cs.plain_versions():
@@ -95,8 +114,8 @@ def read_gate(config):
             DC3D(stacking=settings.MODEL["stacking"]), bench)
     initial = dict(start.named_buffers())
     try:
-        cs.compare_train(k_run, p_run, initial,
-                         "train att" if att else "train")
+        cs.compare_train(k_run, p_run, initial, "train " + tag.strip()
+                         if att else "train")
         print("# gate: pass", flush=True)
     except SystemExit as e:
         print(f"# gate: {e}", flush=True)
@@ -106,9 +125,13 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", default="st_dram_ref",
                     choices=("st_dram_ref", "st_dram_ref_att"))
+    ap.add_argument("--unfused", action="store_true",
+                    help="st_dram_ref_att with USE_FUSED_STACK = False")
     args = ap.parse_args()
-    variants = ATT_VARIANTS if args.config == "st_dram_ref_att" \
-        else VARIANTS
+    if args.unfused and args.config != "st_dram_ref_att":
+        raise SystemExit("--unfused goes with --config st_dram_ref_att")
+    variants = UNFUSED_VARIANTS if args.unfused else ATT_VARIANTS \
+        if args.config == "st_dram_ref_att" else VARIANTS
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -134,7 +157,8 @@ def main():
                   f"{'as in the tree' if change is None else change[2]}",
                   flush=True)
             r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                "--read", args.config], cwd=d,
+                                "--read", args.config,
+                                str(int(args.unfused))], cwd=d,
                                timeout=LIMIT_S)
             if r.returncode != 0:
                 print(f"# variant {name} exited {r.returncode}", flush=True)
@@ -145,6 +169,6 @@ def main():
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--read"]:
-        read_gate(sys.argv[2])
+        read_gate(sys.argv[2], sys.argv[3] == "1")
     else:
         main()

@@ -50,6 +50,16 @@ traceback and a non-zero exit:
    train unfused / train unfused plain, the phases of 9 for the unfused
    flagship, which runs the raw conv (Conv3dFunction) and the
    first-maximum max-pool backward.
+11. conv sweep (after the kernel phases of 3, before 6): ptxas's report
+   (registers, spills) and the dynamic shared memory of each Hopper conv
+   kernel, and the check that their SASS holds HGMMA and no HMMA; then
+   every conv launch of the flagship training step (14 forward, 13 dx,
+   14 dW; conv_shapes, read from a meta-device DC3D) in the mode the step
+   runs it in, the network-entry conv's one CT channel zero-padded to 8:
+   at batch 2 against its plain version (outputs within 2^-7 of the
+   largest, statistics within stats_tol, dW within 1e-3), launched twice
+   with bitwise-equal results; at batch 10 its time, TFLOP/s and share of
+   the bf16 bound beside cuDNN's time for the same conv.
 
 Prints a `{"kernels": [...]}` JSON line and, last, the device line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before it.
@@ -57,6 +67,7 @@ Prints a `{"kernels": [...]}` JSON line and, last, the device line
 
 import contextlib
 import faulthandler
+import re
 import hashlib
 import json
 import os
@@ -85,7 +96,8 @@ LIMITS = {"card": 30, "build": 180, "kernel": 60, "weights": 60,
           "pipeline": 120, "plain": 120, "train": 300, "train_plain": 300,
           "eval_conv_grad": 30, "train_att": 300, "train_att_plain": 300,
           "pipeline_unfused": 120, "plain_unfused": 120, "golden": 60,
-          "train_unfused": 300, "train_unfused_plain": 300}
+          "train_unfused": 300, "train_unfused_plain": 300,
+          "conv_sweep": 240}
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor-core
 # and f32 CUDA-core flop/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -318,6 +330,30 @@ def train_kernel_phases(gen):
             library=lambda: F.conv3d(xcat, wl, padding=1),
             work=lambda y: (nbytes(x1, x2, y) + w.numel() * 2, flops,
                             BF16_FLOPS))
+        # the prologue and statistics modes together at this shape (the
+        # step runs the prologue on one-part conv_1s only): held against
+        # the plain version, and timed beside the raw output's time
+        pro = (torch.rand(192, generator=gen, device="cuda") + 0.5,
+               rnd(192, dtype=torch.float32, scale=0.3))
+        y, st = conv_stack.conv3x3x3_train(x1, w, x2=x2, prologue=pro,
+                                           stats=True)
+        yp, stp = conv_stack.conv3x3x3_train_plain(x1, w, x2=x2,
+                                                   prologue=pro, stats=True)
+        err = (y.float() - yp.float()).abs().max().item()
+        allowed = 2 ** -7 * yp.float().abs().max().item()
+        print(f"# conv3x3x3_train prologue [128|64] -> 64: max_abs_err "
+              f"{err:.3g} (allowed {allowed:.3g})", flush=True)
+        if not err <= allowed:
+            fail("conv3x3x3_train prologue mode on two parts disagrees "
+                 "with its plain version")
+        check_stats("conv3x3x3_train prologue [128|64]", st, stp,
+                    stats_tol(yp.float()))
+        del y, yp
+        ms = cuda_ms(lambda: conv_stack.conv3x3x3_train(
+            x1, w, x2=x2, prologue=pro, stats=True))
+        print(f"# conv3x3x3_train prologue + statistics [128|64] -> 64: ms "
+              f"{ms:.4f} (raw output + statistics "
+              f"{res['conv3x3x3_train']['ms']:.4f})", flush=True)
 
     dy = rnd(10, 80, 80, 80, 64)
     dyl = dy.permute(0, 4, 1, 2, 3)
@@ -552,6 +588,218 @@ def eval_conv_grad_phase(gen):
         fail("the CUDA eval conv under torch.no_grad() did not run")
 
 
+# the Hopper conv kernels (csrc/conv3x3x3.cu, csrc/conv3x3x3_dw.cu)
+WGMMA_KERNELS = ("conv3x3x3_wgmma_kernel", "conv3x3x3_dw_wgmma_kernel")
+
+
+def wgmma_build_report():
+    """ptxas's lines (-Xptxas -v) of the Hopper conv kernels, their dynamic
+    shared memory, and their SASS: each must hold HGMMA and no HMMA (a
+    build that fell back to the legacy tensor-core path fails)."""
+    entry = None
+    for line in open(_build.ptxas_log_path()).read().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1) if any(k in m.group(1)
+                                      for k in WGMMA_KERNELS) else None
+            continue
+        if entry and ("registers" in line or "spill" in line):
+            name = re.search(r"(conv3x3x3\w*_wgmma_kernel)(ILi(\d+)ELi(\d+))?",
+                             entry)
+            tag = name.group(1) + (f"<{name.group(3)}, {name.group(4)}>"
+                                   if name.group(2) else "")
+            print(f"# ptxas {tag}: {line.split(':', 1)[-1].strip()}",
+                  flush=True)
+    lib = _build.load()
+    for bn, slabs in ((32, 2), (64, 2), (128, 2), (256, 1)):
+        print(f"# conv3x3x3_wgmma_kernel<{bn}, {slabs}>: "
+              f"{lib.conv3x3x3_wgmma_smem(bn, slabs)} bytes of dynamic "
+              "shared memory", flush=True)
+    print(f"# conv3x3x3_dw_wgmma_kernel: {lib.conv3x3x3_dw_wgmma_smem()} "
+          "bytes of dynamic shared memory", flush=True)
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", _build.library_path()],
+                          capture_output=True, text=True, timeout=60).stdout
+    found = 0
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        if not any(k in name for k in WGMMA_KERNELS):
+            continue
+        found += 1
+        hg = len(re.findall(r"\bHGMMA\b", fn))
+        hm = len(re.findall(r"\bHMMA\b", fn))
+        print(f"# sass {name[:110]}: {hg} HGMMA, {hm} HMMA", flush=True)
+        if hg == 0 or hm:
+            fail(f"{name}: the Hopper conv kernel's SASS has {hg} HGMMA and "
+                 f"{hm} HMMA instructions")
+    if found != 5:
+        fail(f"expected 5 Hopper conv kernels in the SASS, found {found}")
+
+
+def conv_shapes(size=80):
+    """The 3x3x3 convs of the flagship DC3D on size^3 chunks, read from a
+    meta-device model in forward order: (name, edge, (C1, C2), Co), where
+    edge is the level's volume edge and C2 the skip part of a decoder
+    conv_0's [upsample, skip] input (0 for one part)."""
+    with torch.device("meta"):
+        m = DC3D(stacking=3)
+    n, out = m.n_layers, []
+
+    def block(name, mod, edge, skip=0):
+        w0, w1 = mod.convs.conv_0.weight, mod.convs.conv_1.weight
+        out.append((f"{name}.conv_0", edge, (w0.shape[1] - skip, skip),
+                    w0.shape[0]))
+        out.append((f"{name}.conv_1", edge, (w1.shape[1], 0), w1.shape[0]))
+    for i, mod in enumerate(m.ds_modules):
+        block(f"ds_{i}", mod, size >> i)
+    block("bg", m.bg, size >> n)
+    for i, mod in enumerate(m.us_modules):
+        skip = m.ds_modules[n - 1 - i].convs.conv_1.weight.shape[0]
+        block(f"us_{i}", mod, size >> (n - 1 - i), skip)
+    return out
+
+
+def flagship_conv_launches():
+    """(kind, name, edge, (C1, C2), Co, mode) of the flagship training
+    step's conv launches: per conv the forward (conv_0: raw output and
+    statistics of a one- or two-part input; conv_1: prologue and
+    statistics), the dx (none for the CT input; conv_0's split into its
+    two parts) and the dW (conv_1's with the prologue)."""
+    out = []
+    for name, e, parts, co in conv_shapes():
+        first = name.endswith("conv_0")
+        out.append(("fwd", name, e, parts, co,
+                    "raw+stats" if first else "prologue+stats"))
+        if name != "ds_0.conv_0":
+            out.append(("dx", name, e, (co, 0), parts,
+                        "split" if parts[1] else "one part"))
+        out.append(("dw", name, e, parts, co,
+                    "two parts" if parts[1] else
+                    "one part" if first else "prologue"))
+    return out
+
+
+def conv_sweep_phase(gen):
+    """Every conv launch of the flagship training step: checked at batch
+    2, timed at batch 10 beside cuDNN. Returns the per-launch records."""
+    wgmma_build_report()
+    torch.cuda.synchronize()
+    records = []
+    for kind, name, e, (c1, c2), co, mode in flagship_conv_launches():
+        recs = {}
+        for B in (2, 10):
+            def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+                return (torch.randn(*shape, generator=gen, device="cuda")
+                        * scale).to(dtype)
+            ci = c1 + c2
+            x1 = rnd(B, e, e, e, c1)
+            x2 = rnd(B, e, e, e, c2) if c2 else None
+            pro = (torch.rand(ci, generator=gen, device="cuda") + 0.5,
+                   rnd(ci, scale=0.3, dtype=torch.float32)) \
+                if mode == "prologue+stats" or mode == "prologue" else None
+            if kind == "dx":
+                nout = sum(co)
+                w = rnd(c1, nout, 3, 3, 3, scale=(27 * c1) ** -0.5,
+                        dtype=torch.float32)
+                split = co if co[1] else None
+                new = lambda: conv_stack.conv3x3x3_dx(x1, w, split)  # noqa
+                plain = lambda: conv_stack.conv3x3x3_dx_plain(x1, w, split)  # noqa
+                flops = 2.0 * 27 * c1 * nout * B * e ** 3
+                moved = nbytes(x1) * (1 + nout / c1) + w.numel() * 2
+            elif kind == "fwd":
+                w = rnd(co, ci, 3, 3, 3, scale=(27 * ci) ** -0.5,
+                        dtype=torch.float32)
+                new = lambda: conv_stack.conv3x3x3_train(  # noqa
+                    x1, w, x2=x2, prologue=pro, stats=True)
+                plain = lambda: conv_stack.conv3x3x3_train_plain(  # noqa
+                    x1, w, x2=x2, prologue=pro, stats=True)
+                flops = 2.0 * 27 * ci * co * B * e ** 3
+                moved = (nbytes(x1) / c1) * (ci + co) + w.numel() * 2
+            else:
+                dy = rnd(B, e, e, e, co)
+                new = lambda: conv_stack.conv3x3x3_dw(  # noqa
+                    x1, dy, x2=x2, prologue=pro)
+                plain = lambda: conv_stack.conv3x3x3_dw_plain(  # noqa
+                    x1, dy, x2=x2, prologue=pro)
+                flops = 2.0 * 27 * ci * co * B * e ** 3
+                moved = (nbytes(x1) / c1) * (ci + co) + 27 * ci * co * 4
+            tag = (f"{kind} {name} {B}x{e}^3 "
+                   f"{c1 if not c2 else f'[{c1}|{c2}]'} -> "
+                   f"{co if kind != 'dx' else (co[0] if not co[1] else f'[{co[0]}|{co[1]}]')}"
+                   f" {mode}{' (padded to 8)' if ci % 8 else ''}")
+            if B == 2:
+                a, b = _outputs(new()), _outputs(plain())
+                a2 = _outputs(new())
+                torch.cuda.synchronize()
+                errs = []
+                for k, (u, v) in enumerate(zip(a, b)):
+                    if v is None:
+                        continue
+                    if kind == "fwd" and k == 1:
+                        lim = stats_tol(b[0].float())
+                        share = ((u - v).abs() / lim).max().item()
+                        errs.append(f"stats {share:.3g} of allowed")
+                        if not share <= 1.0:
+                            fail(f"sweep {tag}: statistics disagree")
+                        continue
+                    rel = 1e-3 if kind == "dw" else 2 ** -7
+                    err = (u.float() - v.float()).abs().max().item()
+                    allowed = rel * v.float().abs().max().item()
+                    errs.append(f"err {err:.3g} (allowed {allowed:.3g})")
+                    if not err <= allowed:
+                        fail(f"sweep {tag}: output {k} disagrees with its "
+                             "plain version")
+                same = all(torch.equal(u, v) for u, v in zip(a, a2)
+                           if u is not None)
+                if not same:
+                    fail(f"sweep {tag}: two launches differ bitwise")
+                print(f"# sweep {tag}: {', '.join(errs)}; repeat bitwise "
+                      "equal", flush=True)
+                del a, b, a2
+                continue
+            ms = cuda_ms(new, reps=5)
+            xl = (x1 if x2 is None else torch.cat([x1, x2], -1)).permute(
+                0, 4, 1, 2, 3)
+            if kind == "fwd":
+                wl = w.to(torch.bfloat16).contiguous(
+                    memory_format=torch.channels_last_3d)
+                lib = lambda: F.conv3d(xl, wl, padding=1)  # noqa
+            elif kind == "dx":
+                wl = w.to(torch.bfloat16).contiguous(
+                    memory_format=torch.channels_last_3d)
+                shape = (B, sum(co), e, e, e)
+                lib = lambda: torch.nn.grad.conv3d_input(  # noqa
+                    shape, wl, xl, padding=1)
+            else:
+                dyl = dy.permute(0, 4, 1, 2, 3)
+                lib = lambda: torch.nn.grad.conv3d_weight(  # noqa
+                    xl, (co, ci, 3, 3, 3), dyl, padding=1)
+            lib_ms = cuda_ms(lib, reps=5)
+            bound_ms, _ = bound(moved, flops, BF16_FLOPS)
+            recs = {"kind": kind, "name": name, "edge": e, "parts": [c1, c2],
+                    "out": co, "mode": mode,
+                    "ms": ms, "tflops": flops / ms / 1e9,
+                    "bound_ms": bound_ms, "share_of_bound": bound_ms / ms,
+                    "cudnn_ms": lib_ms}
+            print(f"# sweep {tag}: ms {ms:.4f} ({flops / ms / 1e9:.1f} "
+                  f"TFLOP/s, {100 * bound_ms / ms:.1f}% of the bf16 bound "
+                  f"{bound_ms:.4f} ms); cuDNN {lib_ms:.4f} ms"
+                  f"{' (no prologue)' if pro is not None else ''}",
+                  flush=True)
+            del xl
+        records.append(recs)
+        torch.cuda.empty_cache()
+    tot = {k: sum(r["ms"] for r in records if r["kind"] == k)
+           for k in ("fwd", "dx", "dw")}
+    lib = {k: sum(r["cudnn_ms"] for r in records if r["kind"] == k)
+           for k in ("fwd", "dx", "dw")}
+    print(f"# sweep totals at batch 10 (ms, this kernel / cuDNN): "
+          + ", ".join(f"{k} {tot[k]:.2f} / {lib[k]:.2f}" for k in tot),
+          flush=True)
+    print("# sweep " + json.dumps(records), flush=True)
+    return records
+
+
 WRAPPERS = {"conv3x3x3": (conv_stack, "conv3x3x3"),
             "maxpool2": (pool, "maxpool2"),
             "upsample2x": (upsample, "upsample2x"),
@@ -605,6 +853,19 @@ META = {
     "maxpool2_bwd_first": ("dram_tpu_torch/kernels/csrc/maxpool2.cu",
                            "dram_tpu/models/blocks.py:384"),
 }
+# the __global__ functions behind each wrapper (csrc/*.cu)
+GLOBALS = {"conv3x3x3": "conv3x3x3_wgmma_kernel",
+           "conv3x3x3_dw": "conv3x3x3_dw_wgmma_kernel, colsum_kernel",
+           "maxpool2": "maxpool2_kernel", "upsample2x": "upsample2x_kernel",
+           "stencil_attention": "stencil_attention_kernel",
+           "maxpool2_bwd": "maxpool2_bwd_kernel",
+           "upsample2x_bwd": "upsample2x_bwd_kernel",
+           "stencil_attention_scal": "stencil_attention_scal_kernel",
+           "stencil_attention_bwd": "stencil_attention_bwd_kernel",
+           "maxpool2_bwd_first": "maxpool2_bwd_kernel"}
+for _k in ("conv3x3x3_train", "conv3x3x3_dx", "conv3d", "conv3d_dx"):
+    GLOBALS[_k] = GLOBALS["conv3x3x3"]
+GLOBALS["conv3d_dw"] = GLOBALS["conv3x3x3_dw"]
 # the kernels each path launches: the chunk-wire inference, the
 # st_dram_ref training step and the flagship st_dram_ref_att training step,
 # each with the fused conv stack; the flagship's inference and training
@@ -1040,6 +1301,9 @@ def main():
     torch.cuda.empty_cache()
     res.update(unfused_kernel_phases(gen))
     torch.cuda.empty_cache()
+    with phase("conv sweep", LIMITS["conv_sweep"]):
+        conv_sweep_phase(gen)
+    torch.cuda.empty_cache()
 
     bench = os.path.join(ROOT, "assets", "bench_weights.ckpt.xz")
     train_phases(st_dram_ref, "train", bench, lambda: dict(
@@ -1074,7 +1338,7 @@ def main():
         by_path = {path: launches[path][k] for path in PATHS
                    if k in PATHS[path]}
         kernels.append({"name": k, "route": "cuda", "source": META[k][0],
-                        "replaces": META[k][1],
+                        "replaces": META[k][1], "global": GLOBALS[k],
                         "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **res[k]})
     print("# kernels " + json.dumps({"kernels": kernels}), flush=True)

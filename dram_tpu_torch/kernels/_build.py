@@ -29,19 +29,24 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the Hopper conv kernels find cuTensorMapEncodeTiled with dlopen/dlsym
+LINK_FLAGS = ("-ldl",)
 BUILD_TIMEOUT_S = 180
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-# launcher name -> argtypes (every launcher returns cudaGetLastError())
+_PI64 = ctypes.POINTER(ctypes.c_int64)
+# launcher name -> argtypes (every launcher returns cudaGetLastError(), or
+# a negative code of csrc/conv_wgmma.cuh)
 SIGNATURES = {
-    "conv3x3x3_bf16": [_P, _I, _P, _I, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _P],
-    "conv3x3x3_train_bf16": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _I, _P,
-                             _I, _I, _I, _I, _P],
+    "conv3x3x3_wgmma_bf16": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I,
+                             _P, _I, _P, _I, _I, _I, _I, _PI64, _P],
     "colsum_f32": [_P, _I64, _I64, _I, _P, _P],
-    "conv3x3x3_dw_bf16": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _I64, _I, _P, _P],
+    "conv3x3x3_dw_wgmma_bf16": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _PI64, _P, _P],
+    # queries, not launchers: the wgmma kernels' dynamic shared memory
+    "conv3x3x3_wgmma_smem": [_I, _I],
+    "conv3x3x3_dw_wgmma_smem": [],
     "maxpool2_bf16": [_P, _P, _I64, _I64, _I64, _I64, _I64, _P],
     "maxpool2_bwd_bf16": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _P],
     "upsample2x_bf16": [_P, _P, _I64, _I64, _I64, _I64, _I64, _P],
@@ -72,16 +77,23 @@ def _nvcc():
 
 
 def library_path():
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources((".cu", ".cuh")):
         with open(src, "rb") as fp:
             h.update(os.path.basename(src).encode() + fp.read())
     return os.path.join(BUILD_DIR, f"libdram_kernels_{h.hexdigest()[:16]}.so")
 
 
+def ptxas_log_path():
+    """Where a build keeps ptxas's report (-Xptxas -v: registers, shared
+    memory and spills of every kernel), beside the library."""
+    return library_path()[:-len(".so")] + ".ptxas.txt"
+
+
 def _compile(out):
     """Compile every source in parallel, then link; raise with nvcc's
-    stderr on a failure or when BUILD_TIMEOUT_S runs out."""
+    stderr on a failure or when BUILD_TIMEOUT_S runs out. ptxas's report
+    goes to ptxas_log_path()."""
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     deadline = time.monotonic() + BUILD_TIMEOUT_S
@@ -93,7 +105,7 @@ def _compile(out):
             procs.append((src, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-        errors = []
+        errors, logs = [], []
         for src, p in procs:
             try:
                 _, err = p.communicate(
@@ -105,12 +117,14 @@ def _compile(out):
                                    f"compiling {src}") from None
             if p.returncode != 0:
                 errors.append(f"{src}:\n{err}")
+            logs.append(f"# {os.path.basename(src)}\n{err}")
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
         tmp_lib = os.path.join(tmp, "lib.so")
         try:
             res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *objs, "-o",
-                                  tmp_lib], capture_output=True, text=True,
+                                  tmp_lib, *LINK_FLAGS],
+                                 capture_output=True, text=True,
                                  timeout=max(1.0,
                                              deadline - time.monotonic()))
         except subprocess.TimeoutExpired:
@@ -118,6 +132,10 @@ def _compile(out):
                                f"{BUILD_TIMEOUT_S} s") from None
         if res.returncode != 0:
             raise RuntimeError("nvcc link failed:\n" + res.stderr)
+        tmp_log = os.path.join(tmp, "ptxas.txt")
+        with open(tmp_log, "w") as fp:
+            fp.write("\n".join(logs))
+        os.replace(tmp_log, out[:-len(".so")] + ".ptxas.txt")
         os.replace(tmp_lib, out)
 
 
@@ -155,5 +173,9 @@ def launch(name, *args):
     """Call launcher `name` on the current stream; raise on a CUDA error."""
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(load(), name)(*args, stream)
+    if err < 0:
+        raise RuntimeError(f"{name}: launcher error {err} (-1: plan not "
+                           "this build's, -2: no cuTensorMapEncodeTiled, "
+                           "-100 - r: tensor map encode returned r)")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")

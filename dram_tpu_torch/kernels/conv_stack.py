@@ -8,14 +8,24 @@ parts that act as one channel concat.
 Port of dram_tpu/core/pallas/fused_stack.py: conv_cm (kernel _cbr_kernel)
 in its eval, training and dx uses, conv_dw_cm (kernel _dw_kernel_pro), and
 the custom VJP of fused_cbr2 (_fused_cbr2_vjp :531-689) as
-ConvStackFunction. CUDA sources: csrc/conv3x3x3.cu, csrc/conv3x3x3_dw.cu.
-The launchers launch_train, launch_dx and launch_dw are shared with the
-unfused stack's raw conv (kernels/conv3d.py); each wrapper counts its own
-launches.
+ConvStackFunction. CUDA sources: csrc/conv3x3x3.cu, csrc/conv3x3x3_dw.cu
+(and csrc/conv_wgmma.cuh). The launchers
+launch_train, launch_dx and launch_dw are shared with the unfused stack's
+raw conv (kernels/conv3d.py); each wrapper counts its own launches.
+
+On a CUDA tensor every conv runs the Hopper kernels (wgmma fed by TMA).
+TMA strides are multiples of 16 bytes, so an input part whose channel
+count is not a multiple of 8 (the network-entry conv's one CT channel) is
+zero-padded to one, with zero weights, as dram_tpu's entry stack pads its
+input to 8 channels (models/blocks.py:235-242). The launch geometry
+(conv_plan, dw_plan) is decided here in plain Python; the C launchers run
+the plan they are handed and refuse one that does not cover the output.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
@@ -64,16 +74,10 @@ def _check_parts(name, x1, x2):
     return C1, x2.shape[-1]
 
 
-def _kernel_weight(w, Ci, C1, C2, name, device):
-    """(Co, Ci, 3, 3, 3) -> the kernels' (27, Ci, Co) bf16 layout."""
-    Co = w.shape[0]
+def _check_weight(w, C1, C2, name):
     if w.shape[1] != C1 + C2 or tuple(w.shape[2:]) != (3, 3, 3):
         raise ValueError(f"{name}: weight {tuple(w.shape)} does not fit "
                          f"{C1} + {C2} input channels")
-    wk = w.permute(2, 3, 4, 1, 0).reshape(27, Ci, Co) \
-        .to(device=device, dtype=torch.bfloat16).contiguous()
-    _build.check_operand(wk, torch.bfloat16, f"{name} w")
-    return wk
 
 
 def _f32_vec(v, device):
@@ -97,6 +101,150 @@ def _colsum(src, nrows, ncols):
     return out
 
 
+# --- launch geometry of the Hopper kernels (csrc/conv_wgmma.cuh) --------------
+
+BOX_X, BOX_Y = 8, 8   # a tile's x and y extent: an x-row is one swizzle atom
+CHUNK = 64            # input channels per K chunk: one 128-byte row
+BNS = (32, 64, 128, 256)  # output-channel tiles the conv kernel is built for
+DW_BZ = 2             # z extent of a weight-gradient K box
+# split-K target of the weight-gradient kernel: one block per SM (~170 KB
+# of shared memory), a few waves of the 132 SMs
+DW_TARGET_BLOCKS = 132 * 8
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def pad8(t, parts=None, dim=-1):
+    """t with zeros appended along `dim` to each of its channel parts
+    (default: one part, all of dim) up to a multiple of 8 channels; t
+    itself when every part is one already."""
+    parts = tuple(parts) if parts is not None else (t.shape[dim],)
+    if all(c % 8 == 0 for c in parts):
+        return t
+    pieces = []
+    for p in torch.split(t, list(parts), dim):
+        shape = list(p.shape)
+        shape[dim] = -p.shape[dim] % 8
+        pieces += [p, p.new_zeros(shape)]
+    return torch.cat(pieces, dim)
+
+
+def k_chunks(C1, C2):
+    """The K loop's 64-channel chunks of a two-part input, in order:
+    (part, first channel in the part, first channel in Ci, valid
+    channels); chunk k reads part 1 while k < ceil(C1 / 64)."""
+    out = []
+    for part, (base, c) in enumerate(((0, C1), (C1, C2))):
+        out += [(part, cl, base + cl, min(CHUNK, c - cl))
+                for cl in range(0, c, CHUNK)]
+    return out
+
+
+def pack_weight(w):
+    """(Co, Ci, 3, 3, 3) -> the conv kernel's K-major (27, Co, Ci) bf16:
+    tap (kd, kh, kw) = kd 9 + kh 3 + kw, each output channel's Ci
+    contiguous."""
+    Co, Ci = w.shape[:2]
+    return w.permute(2, 3, 4, 0, 1).reshape(27, Co, Ci) \
+        .to(torch.bfloat16).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(B, D, H, W, C1, C2, Co):
+    """Geometry of one launch of csrc/conv3x3x3.cu's kernel for a (B, D,
+    H, W) volume of C1 + C2 input and Co output channels: the N tile (the
+    one in BNS that pads Co least, the widest of ties) and the z-planes a
+    consumer warpgroup owns (2 up to 128 columns, else 1), the output box,
+    the tile grid (x fastest, then y, z, batch element), one statistics
+    row per M tile; `args` is the vector the launcher runs."""
+    bn = min(BNS, key=lambda n: (_cdiv(Co, n) * n, -n))
+    slabs = 2 if bn <= 128 else 1
+    bz = 2 * slabs
+    tiles = (_cdiv(W, BOX_X), _cdiv(H, BOX_Y), _cdiv(D, bz))
+    m_tiles = B * tiles[0] * tiles[1] * tiles[2]
+    n_tiles = _cdiv(Co, bn)
+    return {"bn": bn, "slabs": slabs, "box": (BOX_X, BOX_Y, bz),
+            "tiles": tiles, "m_tiles": m_tiles, "n_tiles": n_tiles,
+            "stat_rows": m_tiles,
+            "args": (bn, slabs, *tiles, m_tiles, n_tiles)}
+
+
+def _blocks_split(tiles, nboxes):
+    """Splits of K for `tiles` weight-gradient tiles: up to
+    DW_TARGET_BLOCKS blocks, the count that fills the last wave of 132
+    SMs best (the most splits of ties)."""
+    hi = max(1, min(nboxes, DW_TARGET_BLOCKS // tiles))
+
+    def fill(n):
+        blocks = tiles * n
+        return blocks / (_cdiv(blocks, 132) * 132)
+    return max(range(1, hi + 1), key=lambda n: (fill(n), n))
+
+
+@functools.lru_cache(maxsize=None)
+def dw_plan(B, D, H, W, C1, C2, Co):
+    """Geometry of one launch of csrc/conv3x3x3_dw.cu's kernel: K boxes of
+    8 x 8 x DW_BZ voxels over the batch (numbered as conv_plan's tiles),
+    split into runs of `kboxes` boxes, one block per (x-shift, 64-channel
+    Ci chunk, 64-channel Co tile, split); `args` is the vector the
+    launcher runs."""
+    tiles = (_cdiv(W, BOX_X), _cdiv(H, BOX_Y), _cdiv(D, DW_BZ))
+    nboxes = B * tiles[0] * tiles[1] * tiles[2]
+    n_chunks = len(k_chunks(C1, C2))
+    n_co = _cdiv(Co, 64)
+    nsplit = _blocks_split(3 * n_chunks * n_co, nboxes)
+    kboxes = _cdiv(nboxes, nsplit)
+    nsplit = _cdiv(nboxes, kboxes)
+    return {"box": (BOX_X, BOX_Y, DW_BZ), "tiles": tiles, "nboxes": nboxes,
+            "kboxes": kboxes, "nsplit": nsplit,
+            "grid": (3 * n_chunks, n_co, nsplit),
+            "args": (*tiles, nboxes, kboxes, nsplit)}
+
+
+def _args(vals):
+    return (ctypes.c_int64 * len(vals))(*vals)
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def _launch_conv(x1, x2, w, prologue, epilogue, y1, y2, stats, name):
+    """One launch of csrc/conv3x3x3.cu's kernel on CUDA tensors into y1
+    (and y2), input parts zero-padded to multiples of 8 channels (pad8);
+    returns the (2, Co) statistics when `stats`. w: (Co1 + Co2, C1 + C2,
+    3, 3, 3); the output parts must be even (bf16 pairs)."""
+    B, D, H, W, C1 = x1.shape
+    C2 = x2.shape[-1] if x2 is not None else 0
+    Co1, Co2 = y1.shape[-1], (y2.shape[-1] if y2 is not None else 0)
+    Co = Co1 + Co2
+    _check_weight(w, C1, C2, name)
+    if Co1 % 2 or Co2 % 2:
+        raise ValueError(f"{name}: output parts of {Co1} and {Co2} channels; "
+                         "the kernel writes even ones")
+    ps = pt = es = et = None
+    if prologue is not None:
+        ps, pt = (pad8(_f32_vec(v, x1.device), (C1, C2), 0)
+                  for v in prologue)
+    if epilogue is not None:
+        es, et = (_f32_vec(v, x1.device) for v in epilogue)
+    wk = pack_weight(pad8(w.to(x1.device), (C1, C2), 1))
+    x1 = pad8(x1)
+    x2 = pad8(x2) if x2 is not None else None
+    C1, C2 = x1.shape[-1], (x2.shape[-1] if x2 is not None else 0)
+    plan = conv_plan(B, D, H, W, C1, C2, Co)
+    nrows = plan["stat_rows"]
+    part = torch.empty((nrows, 2 * Co), dtype=torch.float32,
+                       device=x1.device) if stats else None
+    _build.launch("conv3x3x3_wgmma_bf16", x1.data_ptr(), C1, _ptr(x2), C2,
+                  wk.data_ptr(), _ptr(ps), _ptr(pt), _ptr(es), _ptr(et),
+                  y1.data_ptr(), Co1, _ptr(y2), Co2, _ptr(part), B, D, H, W,
+                  _args(plan["args"]))
+    return _colsum(part, nrows, 2 * Co).view(2, Co) if stats else None
+
+
 # --- eval mode --------------------------------------------------------------
 
 
@@ -117,7 +265,7 @@ def conv3x3x3_plain(x1, w, scale, shift, x2=None):
 def conv3x3x3(x1, w, scale, shift, x2=None):
     """Kernel wrapper of conv3x3x3_plain: CUDA tensors launch
     csrc/conv3x3x3.cu (bf16 activations; w is cast to bf16 in the
-    kernel's (27, Ci, Co) layout); CPU tensors take the plain version.
+    kernel's layout, pack_weight); CPU tensors take the plain version.
 
     The eval conv has no gradient on CUDA: with grad enabled and an
     operand that requires grad it raises rather than return a result
@@ -133,15 +281,11 @@ def conv3x3x3(x1, w, scale, shift, x2=None):
             "conv3x3x3: the CUDA eval conv has no gradient; call it under "
             "torch.no_grad() or put the stack in train mode")
     B, D, H, W, _ = x1.shape
-    C1, C2 = _check_parts("conv3x3x3", x1, x2)
-    Co = w.shape[0]
-    wk = _kernel_weight(w, C1 + C2, C1, C2, "conv3x3x3", x1.device)
-    scale, shift = _f32_vec(scale, x1.device), _f32_vec(shift, x1.device)
-    y = torch.empty((B, D, H, W, Co), dtype=torch.bfloat16, device=x1.device)
-    _build.launch("conv3x3x3_bf16", x1.data_ptr(), C1,
-                  x2.data_ptr() if x2 is not None else None, C2,
-                  wk.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                  y.data_ptr(), B, D, H, W, Co)
+    _check_parts("conv3x3x3", x1, x2)
+    y = torch.empty((B, D, H, W, w.shape[0]), dtype=torch.bfloat16,
+                    device=x1.device)
+    _launch_conv(x1, x2, w, None, (scale, shift), y, None, False,
+                 "conv3x3x3")
     conv3x3x3.launches += 1
     return y
 
@@ -178,27 +322,13 @@ def conv3x3x3_train(x1, w, x2=None, prologue=None, stats=False):
 
 
 def launch_train(x1, w, x2, prologue, stats, name):
-    """One launch of conv3x3x3_train_bf16 on CUDA tensors (raw output,
+    """One conv launch on CUDA tensors in the training modes (raw output,
     optional prologue and statistics); the callers count it."""
     B, D, H, W, _ = x1.shape
-    C1, C2 = _check_parts(name, x1, x2)
-    Co = w.shape[0]
-    wk = _kernel_weight(w, C1 + C2, C1, C2, name, x1.device)
-    ps = pt = None
-    if prologue is not None:
-        ps, pt = (_f32_vec(v, x1.device) for v in prologue)
-    y = torch.empty((B, D, H, W, Co), dtype=torch.bfloat16, device=x1.device)
-    nblk = -(-(B * D * H * W) // 64)
-    part = torch.empty((nblk, 2 * Co), dtype=torch.float32,
-                       device=x1.device) if stats else None
-    _build.launch("conv3x3x3_train_bf16", x1.data_ptr(), C1,
-                  x2.data_ptr() if x2 is not None else None, C2,
-                  wk.data_ptr(), ps.data_ptr() if ps is not None else None,
-                  pt.data_ptr() if pt is not None else None, y.data_ptr(),
-                  Co, None, 0, part.data_ptr() if stats else None,
-                  B, D, H, W)
-    st = _colsum(part, nblk, 2 * Co).view(2, Co) if stats else None
-    return y, st
+    _check_parts(name, x1, x2)
+    y = torch.empty((B, D, H, W, w.shape[0]), dtype=torch.bfloat16,
+                    device=x1.device)
+    return y, _launch_conv(x1, x2, w, prologue, None, y, None, stats, name)
 
 
 conv3x3x3_train.launches = 0
@@ -239,8 +369,9 @@ def conv3x3x3_dx(dy, w, split=None):
 
 
 def launch_dx(dy, w, split, name):
-    """One launch of conv3x3x3_train_bf16 on the flipped weights of w for
-    a CUDA cotangent dy; the callers count it."""
+    """One conv launch on the flipped weights of w for a CUDA cotangent
+    dy, the split written straight into its two parts; the callers count
+    it."""
     B, D, H, W, Co = dy.shape
     _build.check_operand(dy, torch.bfloat16, f"{name} dy")
     Ci = w.shape[1]
@@ -250,13 +381,10 @@ def launch_dx(dy, w, split, name):
     c1, c2 = split if split is not None else (Ci, 0)
     if c1 + c2 != Ci:
         raise ValueError(f"{name}: split {split} of {Ci} channels")
-    wk = _kernel_weight(_flip_w(w), Co, Co, 0, name, dy.device)
     y1 = torch.empty((B, D, H, W, c1), dtype=torch.bfloat16, device=dy.device)
     y2 = torch.empty((B, D, H, W, c2), dtype=torch.bfloat16,
                      device=dy.device) if c2 else None
-    _build.launch("conv3x3x3_train_bf16", dy.data_ptr(), Co, None, 0,
-                  wk.data_ptr(), None, None, y1.data_ptr(), c1,
-                  y2.data_ptr() if c2 else None, c2, None, B, D, H, W)
+    _launch_conv(dy, None, _flip_w(w), None, None, y1, y2, False, name)
     return y1 if split is None else (y1, y2)
 
 
@@ -279,21 +407,6 @@ def conv3x3x3_dw_plain(x1, dy, x2=None, prologue=None):
     return dw
 
 
-# split-K target: enough blocks for ~16 resident on each of the 132 SMs
-DW_TARGET_BLOCKS = 132 * 16
-
-
-def dw_split(M, Co, V):
-    """(K chunk in voxels, number of chunks) for the weight-gradient
-    kernel: enough chunks to fill the card, each a multiple of 32 voxels
-    and at least 256 of them."""
-    tiles = -(-M // 64) * -(-Co // 64)
-    n = max(1, min(-(-DW_TARGET_BLOCKS // tiles), V // 256))
-    kchunk = -(-V // n)
-    kchunk = -(-kchunk // 32) * 32
-    return kchunk, -(-V // kchunk)
-
-
 def conv3x3x3_dw(x1, dy, x2=None, prologue=None):
     """Kernel wrapper of conv3x3x3_dw_plain: CUDA tensors launch
     csrc/conv3x3x3_dw.cu (split K, f32 partial tiles) and colsum_f32
@@ -307,30 +420,44 @@ def conv3x3x3_dw(x1, dy, x2=None, prologue=None):
 
 
 def launch_dw(x1, dy, x2, prologue, name):
-    """One launch of conv3x3x3_dw_bf16 (and its colsum_f32 passes) on CUDA
-    tensors: the f32 (Co, Ci, 3, 3, 3) weight gradient; the callers count
-    it."""
+    """One launch of csrc/conv3x3x3_dw.cu's kernel (and its colsum_f32
+    passes) on CUDA tensors, channel parts zero-padded to multiples of 8
+    (pad8) and their rows dropped: the f32 (Co, Ci, 3, 3, 3) weight
+    gradient; the callers count it."""
     B, D, H, W, _ = x1.shape
     C1, C2 = _check_parts(name, x1, x2)
     _build.check_operand(dy, torch.bfloat16, f"{name} dy")
     if tuple(dy.shape[:4]) != (B, D, H, W):
         raise ValueError(f"{name}: dy {tuple(dy.shape)} does not fit "
                          f"x {tuple(x1.shape)}")
-    Ci, Co = C1 + C2, dy.shape[-1]
+    Co = dy.shape[-1]
     ps = pt = None
     if prologue is not None:
-        ps, pt = (_f32_vec(v, x1.device) for v in prologue)
-    M, V = 27 * Ci, B * D * H * W
-    kchunk, nsplit = dw_split(M, Co, V)
-    part = torch.empty((nsplit, M * Co), dtype=torch.float32,
+        ps, pt = (pad8(_f32_vec(v, x1.device), (C1, C2), 0)
+                  for v in prologue)
+    x1p, dyp = pad8(x1), pad8(dy)
+    x2p = pad8(x2) if x2 is not None else None
+    P1, P2 = x1p.shape[-1], (x2p.shape[-1] if x2p is not None else 0)
+    Cp, Cop = P1 + P2, dyp.shape[-1]
+    plan = dw_plan(B, D, H, W, P1, P2, Cop)
+    nsplit = plan["nsplit"]
+    part = torch.empty((nsplit, 27 * Cp * Cop), dtype=torch.float32,
                        device=x1.device)
-    _build.launch("conv3x3x3_dw_bf16", x1.data_ptr(), C1,
-                  x2.data_ptr() if x2 is not None else None, C2,
-                  ps.data_ptr() if ps is not None else None,
-                  pt.data_ptr() if pt is not None else None, dy.data_ptr(),
-                  Co, B, D, H, W, kchunk, nsplit, part.data_ptr())
-    dw = _colsum(part, nsplit, M * Co) if nsplit > 1 else part[0]
-    return dw.view(3, 3, 3, Ci, Co).permute(4, 3, 0, 1, 2).contiguous()
+    _build.launch("conv3x3x3_dw_wgmma_bf16", x1p.data_ptr(), P1, _ptr(x2p),
+                  P2, _ptr(ps), _ptr(pt), dyp.data_ptr(), Cop, B, D, H, W,
+                  _args(plan["args"]), part.data_ptr())
+    dw = _colsum(part, nsplit, 27 * Cp * Cop) if nsplit > 1 else part[0]
+    return unpad_dw(dw.view(3, 3, 3, Cp, Cop).permute(4, 3, 0, 1, 2), C1,
+                    C2, Co)
+
+
+def unpad_dw(dw, C1, C2, Co):
+    """The (Co, C1 + C2, 3, 3, 3) weight gradient out of one of pad8's
+    padded channels: the rows of the zero channels dropped."""
+    P1 = C1 + (-C1 % 8)
+    if tuple(dw.shape[:2]) != (Co, C1 + C2):
+        dw = torch.cat([dw[:Co, :C1], dw[:Co, P1:P1 + C2]], 1)
+    return dw.contiguous()
 
 
 conv3x3x3_dw.launches = 0

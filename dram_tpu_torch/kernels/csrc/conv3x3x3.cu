@@ -8,224 +8,415 @@
 // per-channel sum / sum-of-squares, and the BN affine+ReLU of the previous
 // conv as a prologue on the staged input); and the input gradient of the
 // backward (_vjp_bwd :637-689: the same conv on transposed, flipped
-// weights, the output split into the two parts of a virtual concat).
+// weights, the output split into the two parts of a virtual concat). Also
+// the raw conv of the unfused stack (dram_tpu/core/pallas/conv3d.py
+// :_fwd_impl) and its dx.
 //
 // Bound on the H100: operations. The flagship stacks do ~0.92 TFLOP per
 // 80^3 chunk against a few hundred MB of activations, far above the
 // card's ~295 flop/byte balance point, so the floor is FLOPs / 989
 // TFLOP/s (bf16 tensor cores).
 //
-// Design: implicit GEMM on the tensor cores through WMMA bf16 16x16x16
-// fragments (f32 accumulation). One block owns a tile of 64 consecutive
-// output voxels x 64 output channels; K = 27 taps x Ci runs as 27 tap
-// steps x ceil(Ci/32) channel chunks. Per step the block stages the
-// shifted input rows (64 x 32, zero outside the volume, which is the
-// conv's zero padding) and the weight slice (32 x 64) in shared memory,
-// then 4 warps each multiply a 32x32 sub-tile. The epilogue stages the
-// f32 accumulator in shared memory.
+// Design (conv3x3x3_wgmma_kernel): implicit GEMM with the voxels as M, the
+// output channels as N and K = 27 taps x Ci, on wgmma with f32
+// accumulators in registers, fed by TMA through mbarrier rings
+// (conv_wgmma.cuh). A block owns a box of 8 x 8 x BZ output voxels (x, y,
+// z; BZ = 2 SLABS, one 64-voxel z-plane per wgmma) of one batch element and
+// BN output channels. For each 64-channel K chunk and each x-shift dx of
+// the taps, one TMA load brings the halo box (8 x 10 x (BZ + 2) voxels,
+// shifted by dx) into shared memory; the 9 taps (dz, dy) of that dx read
+// 64-voxel sub-boxes of it (whole swizzle atoms, conv_wgmma.cuh), so each
+// staged input row serves up to 9 taps instead of one. TMA's zero fill
+// outside the tensor is the conv's zero padding: no bounds masks on loads.
+// The weights come by TMA as (tap, 64-channel chunk) tiles of the K-major
+// packed layout (27, Co, Ci). Two parts of a virtual concat are two tensor
+// maps; chunk k of the K loop reads part 1 for k < ceil(C1/64), part 2
+// after, and the weight tile of a chunk starts at the part's first channel
+// in Ci. Warp roles: warpgroups 0-1 consume (SLABS z-planes x BN columns
+// of accumulators each); in warpgroup 2 one thread issues the TMA loads
+// (rings of 2-3 halo and 4 weight stages) and three warps apply the
+// prologue to each halo tile as it lands, while the consumers multiply
+// the previous one.
 //
 // Modes, chosen by which optional pointers are non-null:
 // - eval epilogue (ep_s, ep_t): y = relu(acc * ep_s + ep_t), rounded to
-//   bf16 once. The TPU path instead rounds the raw conv output to bf16
-//   before the next stack's prologue affine; the two differ by bf16
-//   rounding of the pre-affine value (~2^-8 relative).
+//   bf16 once, from the registers. The TPU path instead rounds the raw conv
+//   output to bf16 before the next stack's prologue affine; the two differ
+//   by bf16 rounding of the pre-affine value (~2^-8 relative).
 // - raw output (no ep_s): y = bf16(acc), the training forward and dx.
 // - prologue (pro_s, pro_t): each staged input element inside the volume
 //   becomes bf16(relu(x * pro_s[c] + pro_t[c])) in f32, as
 //   _dw_kernel_pro :249-254 does; elements outside the volume stay zero
 //   AFTER the prologue (relu(0 * s + t) is not 0; JAX masks after the
-//   affine, :255-258), and so do channels past Ci.
-// - stats (partials): each block reduces its 64 rows of the f32
-//   accumulator per channel (sum and sum of squares, before any bf16
-//   rounding, as the TPU epilogue does) and writes one partial row
-//   partials[blockIdx.x][0|1][Co]; colsum_f32 reduces the rows in a
-//   second pass. No atomics: the order of the sums is fixed, so the
-//   statistics are the same from run to run.
-// - split output (y2): output channels [0, Co1) go to y1 (Co1 channels a
-//   voxel) and [Co1, Co1 + Co2) to y2, the transpose of a virtual concat,
-//   so the two parts of dx are written where they belong with no
-//   narrow/cat copy.
+//   affine, :255-258), and so do channels past Ci (wg::prologue_halo).
+// - stats (partials): each block reduces the f32 accumulator of its
+//   in-volume voxels per channel (sum and sum of squares, before any bf16
+//   rounding, as the TPU epilogue does) with warp shuffles, then over its 8
+//   consumer warps in a fixed order, and writes one row
+//   partials[m tile][0|1][Co]; colsum_f32 reduces the rows in a second
+//   pass. No atomics: the statistics are the same from run to run.
+// - split output (y2): output channels [0, Co1) go to y1 and [Co1, Co1 +
+//   Co2) to y2, the transpose of a virtual concat, so the two parts of dx
+//   are written where they belong with no narrow/cat copy.
+// Outputs are written from the registers as bf16 pairs, masked to the
+// voxels inside the volume (the box's ragged edge at W = 10, 20, ...).
 //
-// The input arrives in two parts (x1: C1 channels, x2: C2 channels) that
-// act as one [x1, x2] channel concat, the decoder's [upsample, skip], so
-// the concat is never written to memory (the TPU kernel's "virtual
-// concat"). Ci = C1 + C2 may be any size (Ci = 1 at the network entry):
-// channels past Ci are zero in the staged tile, so no padded copy exists.
-// 16-channel runs that lie inside one part load as two 128-bit loads;
-// anything else loads per element.
-//
-// Shared memory is 5 KB + 4.5 KB + 17 KB + 1 KB, under the 48 KB static
-// limit. Every __syncthreads() sits in loops whose trip counts are uniform
-// over the block. Voxel indices are int64.
+// The kernel needs every input part's channel count to be a multiple of 8
+// (TMA strides are multiples of 16 bytes) and even output parts;
+// conv_stack.py zero-pads an input part that is not (the network-entry
+// conv's one CT channel) to 8 channels, with zero weights.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include "conv_staging.cuh"
-
-using namespace nvcuda;
+#include "conv_wgmma.cuh"
 
 namespace {
 
-constexpr int BM = 64;   // output voxels per block
-constexpr int BN = 64;   // output channels per block
-constexpr int BK = 32;   // input channels per K step
-constexpr int APAD = 8;  // row pads keep WMMA pointers 32-byte aligned
-constexpr int BPAD = 8;
-constexpr int CPAD = 4;
+// --- wgmma kernel ------------------------------------------------------------
 
-__device__ __forceinline__ void load16_weight(
-    __nv_bfloat16* dst, const __nv_bfloat16* __restrict__ w, int tap, int c,
-    int Ci, int n, int Co) {
-  const int64_t base = ((int64_t)tap * Ci + c) * Co + n;
-  if (c < Ci && n + 16 <= Co && (Co & 7) == 0) {
-    const uint4* s = reinterpret_cast<const uint4*>(w + base);
-    reinterpret_cast<uint4*>(dst)[0] = s[0];
-    reinterpret_cast<uint4*>(dst)[1] = s[1];
-    return;
-  }
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-    dst[j] = (c < Ci && n + j < Co) ? w[base + j] : zero;
+constexpr int FWD_THREADS = 384;  // 2 consumer warpgroups + 1 producer
+constexpr int FWD_NB = 4;         // weight stages
+constexpr int FWD_TRANSFORM = 96; // prologue threads (warps 9-11)
+
+template <int BN, int SLABS>
+struct FwdCfg {
+  static constexpr int BZ = 2 * SLABS;   // output z-planes of a tile
+  static constexpr int HZ = BZ + 2;
+  static constexpr int A_ROWS = HZ * wg::HALO_Y * wg::BOX_X;
+  static constexpr int A_BYTES = A_ROWS * wg::ROW_BYTES;
+  static constexpr int B_BYTES = BN * wg::ROW_BYTES;
+  static constexpr int NA = BN <= 64 ? 3 : 2;  // halo stages that fit
+  static constexpr int RED_FLOATS = 8 * 2 * BN;
+  static constexpr int SMEM = 1024 + NA * A_BYTES + FWD_NB * B_BYTES +
+                              RED_FLOATS * 4 + 8 * (3 * NA + 2 * FWD_NB);
+};
+
+struct FwdParams {
+  int C1, C2;       // input parts' channels
+  int nch1, nch;    // K chunks of part 1, of both parts
+  int Co1, Co2;     // output parts' channels
+  int D, H, W;
+  int nbx, nby, nbz;  // tiles per batch element along x, y, z
+  int mtiles, ntiles;
+  const float* pro_s;
+  const float* pro_t;
+  const float* ep_s;
+  const float* ep_t;
+  __nv_bfloat16* y1;
+  __nv_bfloat16* y2;
+  float* partials;
+};
+
+// first voxel (b, z0, y0, x0) of M tile m
+template <int BZ>
+__device__ __forceinline__ void fwd_tile(const FwdParams& p, int m, int& b,
+                                         int& z0, int& y0, int& x0) {
+  x0 = (m % p.nbx) * wg::BOX_X;
+  m /= p.nbx;
+  y0 = (m % p.nby) * wg::BOX_Y;
+  m /= p.nby;
+  z0 = (m % p.nbz) * BZ;
+  b = m / p.nbz;
 }
 
-__global__ void __launch_bounds__(128)
-    conv3x3x3_kernel(const __nv_bfloat16* __restrict__ x1, int C1,
-                     const __nv_bfloat16* __restrict__ x2, int C2,
-                     const float* __restrict__ pro_s,
-                     const float* __restrict__ pro_t,
-                     const __nv_bfloat16* __restrict__ w,
-                     const float* __restrict__ ep_s,
-                     const float* __restrict__ ep_t,
-                     __nv_bfloat16* __restrict__ y1, int Co1,
-                     __nv_bfloat16* __restrict__ y2, int Co2,
-                     float* __restrict__ partials, int B, int D, int H,
-                     int W) {
-  __shared__ __align__(128) __nv_bfloat16 As[BM][BK + APAD];
-  __shared__ __align__(128) __nv_bfloat16 Bs[BK][BN + BPAD];
-  __shared__ __align__(128) float Cs[BM][BN + CPAD];
-  __shared__ float red[2][2][BN];
+// Persistent: block i takes tiles i, i + gridDim.x, ... (N tile fastest);
+// the rings and their phases carry over from tile to tile, so the
+// producer loads the next tile while the consumers run the epilogue.
+template <int BN, int SLABS>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+    conv3x3x3_wgmma_kernel(const __grid_constant__ CUtensorMap map_x1,
+                           const __grid_constant__ CUtensorMap map_x2,
+                           const __grid_constant__ CUtensorMap map_w,
+                           const FwdParams p) {
+  using Cfg = FwdCfg<BN, SLABS>;
+  constexpr int NACC = BN / 2, NA = Cfg::NA;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem =
+      smem_raw + ((1024 - (wg::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* As = smem;
+  uint8_t* Bs = As + NA * Cfg::A_BYTES;
+  float* red = reinterpret_cast<float*>(Bs + FWD_NB * Cfg::B_BYTES);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(red + Cfg::RED_FLOATS);
+  uint64_t* a_full = bars;
+  uint64_t* a_ready = bars + NA;
+  uint64_t* a_empty = bars + 2 * NA;
+  uint64_t* b_full = bars + 3 * NA;
+  uint64_t* b_empty = b_full + FWD_NB;
 
-  const int64_t V = (int64_t)B * D * H * W;
-  const int64_t m0 = (int64_t)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int Ci = C1 + C2;
-  const int Co = Co1 + Co2;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int ntot = p.mtiles * p.ntiles;
+  const bool pro = p.pro_s != nullptr;
+  const int warpgroup = threadIdx.x >> 7;
 
-  // A staging: thread -> (row, 16-channel half) of the 64 x 32 tile
-  const int arow = tid >> 1, akof = (tid & 1) * 16;
-  const int64_t v = m0 + arow;
-  const bool rowok = v < V;
-  int vx = 0, vy = 0, vz = 0;
-  int64_t vb = 0;
-  if (rowok) {
-    int64_t r = v;
-    vx = (int)(r % W);
-    r /= W;
-    vy = (int)(r % H);
-    r /= H;
-    vz = (int)(r % D);
-    vb = r / D;
-  }
-  // B staging: thread -> (row, 16-column quarter) of the 32 x 64 tile
-  const int brow = tid >> 2, bcol = (tid & 3) * 16;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int nkc = (Ci + BK - 1) / BK;
-  for (int tap = 0; tap < 27; ++tap) {
-    const int dz = tap / 9 - 1, dy = (tap / 3) % 3 - 1, dx = tap % 3 - 1;
-    const int zz = vz + dz, yy = vy + dy, xx = vx + dx;
-    const bool inb = rowok && zz >= 0 && zz < D && yy >= 0 && yy < H &&
-                     xx >= 0 && xx < W;
-    const int64_t nvox = inb ? ((vb * D + zz) * H + yy) * W + xx : 0;
-    for (int kc = 0; kc < nkc; ++kc) {
-      stage16_input(&As[arow][akof], x1, C1, x2, C2, nvox, kc * BK + akof,
-                    inb, pro_s, pro_t);
-      load16_weight(&Bs[brow][bcol], w, tap, kc * BK + brow, Ci, n0 + bcol,
-                    Co);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major>
-            a[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major>
-            bf[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(a[i], &As[wm + i * 16][kk], BK + APAD);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(bf[j], &Bs[kk][wn + j * 16], BN + BPAD);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc[i][j], a[i], bf[j], acc[i][j]);
-      }
-      __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NA; ++i) {
+      wg::mbar_init(&a_full[i], 1);
+      wg::mbar_init(&a_ready[i], FWD_TRANSFORM);
+      wg::mbar_init(&a_empty[i], 8);  // one arrival per consumer warp
     }
+    for (int i = 0; i < FWD_NB; ++i) {
+      wg::mbar_init(&b_full[i], 1);
+      wg::mbar_init(&b_empty[i], 8);
+    }
+    wg::mbar_init_fence();
   }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[wm + i * 16][wn + j * 16], acc[i][j],
-                              BN + CPAD, wmma::mem_row_major);
   __syncthreads();
 
-  if (partials != nullptr) {
-    // per-channel sum / sum of squares of this block's valid rows:
-    // thread -> (column, half of the rows); rows past V hold zeros
-    const int col = tid & (BN - 1), half = tid >> 6;
-    float s = 0.f, q = 0.f;
-    for (int r = half * (BM / 2); r < (half + 1) * (BM / 2); ++r) {
-      if (m0 + r < V) {
-        const float a = Cs[r][col];
-        s += a;
-        q += a * a;
+  if (warpgroup == 2) {
+    wg::regs_dec<72>();
+    if (threadIdx.x < 288) {
+      if (threadIdx.x == 256) {
+        // producer: the consumers' schedule, chunk -> dx -> 9 taps
+        int sa = 0, sb = 0;
+        uint32_t pa = 0, pb = 0;
+        for (int tile = blockIdx.x; tile < ntot; tile += gridDim.x) {
+          int b, z0, y0, x0;
+          fwd_tile<Cfg::BZ>(p, tile / p.ntiles, b, z0, y0, x0);
+          const int n0 = (tile % p.ntiles) * BN;
+          for (int kc = 0; kc < p.nch; ++kc) {
+            const bool second = kc >= p.nch1;
+            const CUtensorMap* mx = second ? &map_x2 : &map_x1;
+            const int cl = (second ? kc - p.nch1 : kc) * wg::CHUNK;
+            const int cw = (second ? p.C1 : 0) + cl;
+            for (int dxi = 0; dxi < 3; ++dxi) {
+              wg::mbar_wait(&a_empty[sa], pa ^ 1);
+              wg::mbar_expect_tx(&a_full[sa], Cfg::A_BYTES);
+              wg::tma_load_5d(As + sa * Cfg::A_BYTES, mx, &a_full[sa], cl,
+                              x0 + dxi - 1, y0 - 1, z0 - 1, b);
+              if (++sa == NA) {
+                sa = 0;
+                pa ^= 1;
+              }
+              for (int t9 = 0; t9 < 9; ++t9) {
+                const int tap = (t9 / 3) * 9 + (t9 % 3) * 3 + dxi;
+                wg::mbar_wait(&b_empty[sb], pb ^ 1);
+                wg::mbar_expect_tx(&b_full[sb], Cfg::B_BYTES);
+                wg::tma_load_3d(Bs + sb * Cfg::B_BYTES, &map_w, &b_full[sb],
+                                cw, n0, tap);
+                if (++sb == FWD_NB) {
+                  sb = 0;
+                  pb ^= 1;
+                }
+              }
+            }
+          }
+        }
+      }
+    } else if (pro) {
+      // prologue on each halo tile as it lands
+      const int tid = threadIdx.x - 288;
+      int sa = 0;
+      uint32_t pa = 0;
+      for (int tile = blockIdx.x; tile < ntot; tile += gridDim.x) {
+        int b, z0, y0, x0;
+        fwd_tile<Cfg::BZ>(p, tile / p.ntiles, b, z0, y0, x0);
+        for (int kc = 0; kc < p.nch; ++kc) {
+          const bool second = kc >= p.nch1;
+          const int cl = (second ? kc - p.nch1 : kc) * wg::CHUNK;
+          const int cg = (second ? p.C1 : 0) + cl;
+          const int cvalid = (second ? p.C2 : p.C1) - cl;
+          float sc[8], sh[8];
+          wg::prologue_coeffs(sc, sh, tid & 7, cvalid, p.pro_s + cg,
+                              p.pro_t + cg);
+          for (int dxi = 0; dxi < 3; ++dxi) {
+            wg::mbar_wait(&a_full[sa], pa);
+            wg::prologue_halo(As + sa * Cfg::A_BYTES, Cfg::A_ROWS, tid,
+                              FWD_TRANSFORM, x0 + dxi - 1, y0 - 1, z0 - 1,
+                              p.D, p.H, p.W, cvalid, sc, sh);
+            wg::fence_async_smem();
+            wg::mbar_arrive(&a_ready[sa]);
+            if (++sa == NA) {
+              sa = 0;
+              pa ^= 1;
+            }
+          }
+        }
       }
     }
-    red[half][0][col] = s;
-    red[half][1][col] = q;
-    __syncthreads();
-    if (half == 0 && n0 + col < Co) {
-      float* prow = partials + (int64_t)blockIdx.x * 2 * Co;
-      prow[n0 + col] = red[0][0][col] + red[1][0][col];
-      prow[Co + n0 + col] = red[0][1][col] + red[1][1][col];
-    }
-  }
+  } else {
+    wg::regs_inc<216>();
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int Co = p.Co1 + p.Co2;
+    float acc[SLABS][NACC];
+    uint64_t* a_wait = pro ? a_ready : a_full;
+    const uint32_t a_base = wg::smem_u32(As), b_base = wg::smem_u32(Bs);
+    int sa = 0, sb = 0;
+    uint32_t pa = 0, pb = 0;
+    for (int tile = blockIdx.x; tile < ntot; tile += gridDim.x) {
+      const int m = tile / p.ntiles;
+      int b, z0, y0, x0;
+      fwd_tile<Cfg::BZ>(p, m, b, z0, y0, x0);
+      const int n0 = (tile % p.ntiles) * BN;
+      int prev_sb = -1, prev_sa = -1;
+      for (int kc = 0; kc < p.nch; ++kc) {
+        for (int dxi = 0; dxi < 3; ++dxi) {
+          wg::mbar_wait(&a_wait[sa], pa);
+          for (int t9 = 0; t9 < 9; ++t9) {
+            const int dzi = t9 / 3, dyi = t9 % 3;
+            // the tile's first product overwrites the accumulators
+            const int keep = kc | dxi | t9;
+            wg::mbar_wait(&b_full[sb], pb);
+            wg::wgmma_fence();
+            const uint64_t db = wg::sw128_desc(b_base + sb * Cfg::B_BYTES);
+#pragma unroll
+            for (int s = 0; s < SLABS; ++s) {
+              // the tap's 64 rows: halo z-plane z + dz + 1, y-rows dy + 1..
+              const int arow =
+                  ((warpgroup * SLABS + s + dzi) * wg::HALO_Y + dyi) *
+                  wg::BOX_X;
+              const uint64_t da = wg::sw128_desc(
+                  a_base + sa * Cfg::A_BYTES + arow * wg::ROW_BYTES);
+              wg::wgmma<BN, 0, 0>(acc[s], da, db, keep);
+#pragma unroll
+              for (int kk = 1; kk < 4; ++kk)
+                wg::wgmma<BN, 0, 0>(acc[s], da + 2 * kk, db + 2 * kk);
+            }
+            wg::wgmma_commit();
+            wg::wgmma_wait<1>();
+            // the previous step's wgmmas are done: release its stages
+            if (prev_sb >= 0 && lane == 0) {
+              wg::mbar_arrive(&b_empty[prev_sb]);
+              if (prev_sa >= 0) wg::mbar_arrive(&a_empty[prev_sa]);
+            }
+            __syncwarp();
+            prev_sb = sb;
+            prev_sa = t9 == 8 ? sa : -1;
+            if (++sb == FWD_NB) {
+              sb = 0;
+              pb ^= 1;
+            }
+          }
+          if (++sa == NA) {
+            sa = 0;
+            pa ^= 1;
+          }
+        }
+      }
+      wg::wgmma_wait<0>();
+#pragma unroll
+      for (int s = 0; s < SLABS; ++s) wg::fence_regs(acc[s]);
+      // release the last stages before the epilogue: the producer moves on
+      if (lane == 0) {
+        wg::mbar_arrive(&b_empty[prev_sb]);
+        wg::mbar_arrive(&a_empty[prev_sa]);
+      }
+      __syncwarp();
 
-  // epilogue: thread -> (row, 32-column half)
-  const int orow = tid >> 1, ocol = (tid & 1) * 32;
-  const int64_t ov = m0 + orow;
-  if (ov < V) {
-#pragma unroll 4
-    for (int j = 0; j < 32; ++j) {
-      const int n = n0 + ocol + j;
-      if (n < Co) {
-        float a = Cs[orow][ocol + j];
-        if (ep_s != nullptr) a = fmaxf(a * ep_s[n] + ep_t[n], 0.f);
-        if (n < Co1)
-          y1[ov * Co1 + n] = __float2bfloat16(a);
-        else
-          y2[ov * Co2 + (n - Co1)] = __float2bfloat16(a);
+      // this thread's rows: z-plane (warpgroup SLABS + s) of the tile,
+      // y-row 2 warp + h, x = lane / 4; columns q 8 + 2 (lane % 4) + {0, 1}
+      const int x = x0 + (lane >> 2);
+      bool valid[SLABS][2];
+      int64_t vox[SLABS][2];
+#pragma unroll
+      for (int s = 0; s < SLABS; ++s)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int y = y0 + 2 * warp + h, z = z0 + warpgroup * SLABS + s;
+          valid[s][h] = x < p.W && y < p.H && z < p.D;
+          vox[s][h] =
+              ((static_cast<int64_t>(b) * p.D + z) * p.H + y) * p.W + x;
+        }
+
+      if (p.partials != nullptr) {
+        const int wrow = (warpgroup * 4 + warp) * 2 * BN;
+#pragma unroll
+        for (int q = 0; q < BN / 8; ++q) {
+          float su[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f};
+#pragma unroll
+          for (int s = 0; s < SLABS; ++s)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float a =
+                    valid[s][h] ? acc[s][q * 4 + h * 2 + e] : 0.f;
+                su[e] += a;
+                sq[e] += a * a;
+              }
+#pragma unroll
+          for (int k = 4; k < 32; k <<= 1)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              su[e] += __shfl_xor_sync(0xffffffffu, su[e], k);
+              sq[e] += __shfl_xor_sync(0xffffffffu, sq[e], k);
+            }
+          if (lane < 4)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              red[wrow + q * 8 + 2 * lane + e] = su[e];
+              red[wrow + BN + q * 8 + 2 * lane + e] = sq[e];
+            }
+        }
+        wg::named_sync(1, 256);
+        for (int i = threadIdx.x; i < 2 * BN; i += 256) {
+          const int k = i / BN, col = i % BN;
+          float tot = 0.f;
+#pragma unroll
+          for (int w = 0; w < 8; ++w) tot += red[w * 2 * BN + k * BN + col];
+          if (n0 + col < Co)
+            p.partials[static_cast<int64_t>(m) * 2 * Co + k * Co + n0 +
+                       col] = tot;
+        }
+        wg::named_sync(1, 256);  // red is free for the next tile
+      }
+
+#pragma unroll
+      for (int q = 0; q < BN / 8; ++q) {
+        const int n = n0 + q * 8 + 2 * (lane & 3);
+        if (n >= Co) continue;
+        float es0 = 1.f, es1 = 1.f, et0 = 0.f, et1 = 0.f;
+        if (p.ep_s != nullptr) {
+          es0 = p.ep_s[n];
+          es1 = p.ep_s[n + 1];
+          et0 = p.ep_t[n];
+          et1 = p.ep_t[n + 1];
+        }
+#pragma unroll
+        for (int s = 0; s < SLABS; ++s)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (!valid[s][h]) continue;
+            float a0 = acc[s][q * 4 + h * 2], a1 = acc[s][q * 4 + h * 2 + 1];
+            if (p.ep_s != nullptr) {
+              a0 = fmaxf(a0 * es0 + et0, 0.f);
+              a1 = fmaxf(a1 * es1 + et1, 0.f);
+            }
+            __nv_bfloat16* dst =
+                n < p.Co1 ? p.y1 + vox[s][h] * p.Co1 + n
+                          : p.y2 + vox[s][h] * p.Co2 + (n - p.Co1);
+            *reinterpret_cast<__nv_bfloat162*>(dst) =
+                __floats2bfloat162_rn(a0, a1);
+          }
       }
     }
   }
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 132;
+  }
+  return n;
+}
+
+template <int BN, int SLABS>
+int launch_wgmma(const CUtensorMap& m1, const CUtensorMap& m2,
+                 const CUtensorMap& mw, const FwdParams& p,
+                 cudaStream_t stream) {
+  auto kern = conv3x3x3_wgmma_kernel<BN, SLABS>;
+  const int smem = FwdCfg<BN, SLABS>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int ntot = p.mtiles * p.ntiles;
+  const int grid = ntot < sm_count() ? ntot : sm_count();
+  kern<<<grid, FWD_THREADS, smem, stream>>>(m1, m2, mw, p);
+  return (int)cudaGetLastError();
 }
 
 // dst[split][c] = sum of src[r][c] over the rows r of chunk `split`
@@ -253,45 +444,81 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-int launch_conv(const void* x1, int C1, const void* x2, int C2,
-                const void* pro_s, const void* pro_t, const void* w,
-                const void* ep_s, const void* ep_t, void* y1, int Co1,
-                void* y2, int Co2, void* partials, int B, int D, int H, int W,
-                void* stream) {
-  const int64_t V = (int64_t)B * D * H * W;
-  const int Co = Co1 + Co2;
-  if (V == 0 || Co == 0) return 0;
-  const dim3 grid((unsigned)((V + BM - 1) / BM),
-                  (unsigned)((Co + BN - 1) / BN));
-  conv3x3x3_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x1, C1, (const __nv_bfloat16*)x2, C2,
-      (const float*)pro_s, (const float*)pro_t, (const __nv_bfloat16*)w,
-      (const float*)ep_s, (const float*)ep_t, (__nv_bfloat16*)y1, Co1,
-      (__nv_bfloat16*)y2, Co2, (float*)partials, B, D, H, W);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
-// eval mode: y = relu(conv([x1, x2], w) * scale + shift)
-extern "C" int conv3x3x3_bf16(const void* x1, int C1, const void* x2, int C2,
-                              const void* w, const void* scale,
-                              const void* shift, void* y, int B, int D, int H,
-                              int W, int Co, void* stream) {
-  return launch_conv(x1, C1, x2, C2, nullptr, nullptr, w, scale, shift, y,
-                     Co, nullptr, 0, nullptr, B, D, H, W, stream);
+// One launch of the wgmma kernel in any mode (see the top of the file):
+// x1 (C1) and optional x2 (C2) NDHWC bf16; wk the K-major weights
+// (27, Co1 + Co2, C1 + C2) bf16; optional pro_s/pro_t (prologue),
+// ep_s/ep_t (eval epilogue), y2 (split output), partials (statistics rows,
+// one per M tile). plan = {bn, slabs, tiles x, y, z, M tiles, N tiles}:
+// conv_stack.conv_plan decides the geometry and the kernel runs it; the
+// launcher refuses a plan it is not built for or that does not cover the
+// output (a tile past the batch would write outside y1).
+extern "C" int conv3x3x3_wgmma_bf16(const void* x1, int C1, const void* x2,
+                                    int C2, const void* wk, const void* pro_s,
+                                    const void* pro_t, const void* ep_s,
+                                    const void* ep_t, void* y1, int Co1,
+                                    void* y2, int Co2, void* partials, int B,
+                                    int D, int H, int W, const int64_t* plan,
+                                    void* stream) {
+  const int Co = Co1 + Co2, Ci = C1 + C2;
+  if ((int64_t)B * D * H * W == 0 || Co == 0) return 0;
+  const int bn = (int)plan[0], slabs = (int)plan[1];
+  const int nbx = (int)plan[2], nby = (int)plan[3], nbz = (int)plan[4];
+  if ((int64_t)nbx * wg::BOX_X < W || (int64_t)nby * wg::BOX_Y < H ||
+      (int64_t)nbz * 2 * slabs < D ||
+      plan[5] != (int64_t)B * nbx * nby * nbz || plan[6] * bn < Co ||
+      C1 % 8 || C2 % 8 || Co1 % 2 || Co2 % 2)
+    return WG_ERR_PLAN;
+  const int64_t dx1[5] = {C1, W, H, D, B}, dx2[5] = {C2 ? C2 : C1, W, H, D, B};
+  const int64_t dw[3] = {Ci, Co, 27};
+  const int abox[5] = {wg::CHUNK, wg::BOX_X, wg::HALO_Y, 2 * slabs + 2, 1};
+  const int wbox[3] = {wg::CHUNK, bn, 1};
+  CUtensorMap m1, m2, mw;
+  int e = wg_map(&m1, x1, 5, dx1, abox);
+  if (!e) e = wg_map(&m2, C2 ? x2 : x1, 5, dx2, abox);
+  if (!e) e = wg_map(&mw, wk, 3, dw, wbox);
+  if (e) return e;
+  FwdParams p;
+  p.C1 = C1;
+  p.C2 = C2;
+  p.nch1 = (C1 + wg::CHUNK - 1) / wg::CHUNK;
+  p.nch = p.nch1 + (C2 + wg::CHUNK - 1) / wg::CHUNK;
+  p.Co1 = Co1;
+  p.Co2 = Co2;
+  p.D = D;
+  p.H = H;
+  p.W = W;
+  p.nbx = nbx;
+  p.nby = nby;
+  p.nbz = nbz;
+  p.mtiles = (int)plan[5];
+  p.ntiles = (int)plan[6];
+  p.pro_s = (const float*)pro_s;
+  p.pro_t = (const float*)pro_t;
+  p.ep_s = (const float*)ep_s;
+  p.ep_t = (const float*)ep_t;
+  p.y1 = (__nv_bfloat16*)y1;
+  p.y2 = (__nv_bfloat16*)y2;
+  p.partials = (float*)partials;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bn == 32 && slabs == 2) return launch_wgmma<32, 2>(m1, m2, mw, p, st);
+  if (bn == 64 && slabs == 2) return launch_wgmma<64, 2>(m1, m2, mw, p, st);
+  if (bn == 128 && slabs == 2)
+    return launch_wgmma<128, 2>(m1, m2, mw, p, st);
+  if (bn == 256 && slabs == 1)
+    return launch_wgmma<256, 1>(m1, m2, mw, p, st);
+  return WG_ERR_PLAN;
 }
 
-// training modes: raw output [y1 | y2] = conv(prologue([x1, x2]), w), with
-// optional prologue (pro_s, pro_t), optional split output (y2, Co2) and
-// optional per-block statistics rows (partials: ceil(V/64) x 2 x Co f32)
-extern "C" int conv3x3x3_train_bf16(const void* x1, int C1, const void* x2,
-                                    int C2, const void* w, const void* pro_s,
-                                    const void* pro_t, void* y1, int Co1,
-                                    void* y2, int Co2, void* partials, int B,
-                                    int D, int H, int W, void* stream) {
-  return launch_conv(x1, C1, x2, C2, pro_s, pro_t, w, nullptr, nullptr, y1,
-                     Co1, y2, Co2, partials, B, D, H, W, stream);
+// Dynamic shared memory of the wgmma kernel built for (bn, slabs), 0 for a
+// configuration it is not built for (for chip_smoke.py's report).
+extern "C" int conv3x3x3_wgmma_smem(int bn, int slabs) {
+  if (bn == 32 && slabs == 2) return FwdCfg<32, 2>::SMEM;
+  if (bn == 64 && slabs == 2) return FwdCfg<64, 2>::SMEM;
+  if (bn == 128 && slabs == 2) return FwdCfg<128, 2>::SMEM;
+  if (bn == 256 && slabs == 1) return FwdCfg<256, 1>::SMEM;
+  return 0;
 }
 
 // dst (nsplit x ncols) = per-chunk column sums of src (nrows x ncols)

@@ -112,11 +112,18 @@ class TestConvTrainModes:
                                    atol=1e-4 * np.abs(want).max())
 
     def test_dw_split_covers_k(self):
-        """The weight-gradient kernel's K chunks tile every voxel once."""
-        for M, Co, V in ((27, 32, 5_120_000), (5184, 64, 5_120_000),
-                         (27 * 768, 256, 80_000), (27 * 16, 16, 100)):
-            kchunk, n = conv_stack.dw_split(M, Co, V)
-            assert kchunk % 32 == 0 and (n - 1) * kchunk < V <= n * kchunk
+        """The weight-gradient kernel's splits of K tile every K box once
+        (dw_plan), within the kernel's block target."""
+        for B, e, C1, C2, Co in ((10, 80, 8, 0, 32), (10, 80, 128, 64, 64),
+                                 (10, 20, 512, 256, 256), (1, 5, 16, 0, 16)):
+            p = conv_stack.dw_plan(B, e, e, e, C1, C2, Co)
+            kb, n = p["kboxes"], p["nsplit"]
+            assert (n - 1) * kb < p["nboxes"] <= n * kb
+            xy, z = -(-e // 8), -(-e // 2)
+            assert p["nboxes"] == B * xy * xy * z
+            tiles = 3 * -(-Co // 64) * len(conv_stack.k_chunks(C1, C2))
+            assert p["grid"] == (tiles // -(-Co // 64), -(-Co // 64), n)
+            assert tiles * n <= max(conv_stack.DW_TARGET_BLOCKS, tiles)
 
 
 class TestPoolBackward:

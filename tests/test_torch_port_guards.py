@@ -59,8 +59,9 @@ def test_chip_smoke_imports_without_jax_or_dram_tpu():
 def test_cuda_sources_include_plain_cuda_headers_only():
     srcs = [f for f in os.listdir(CSRC) if f.endswith((".cu", ".cuh"))]
     assert sorted(srcs) == ["conv3x3x3.cu", "conv3x3x3_dw.cu",
-                            "conv_staging.cuh", "maxpool2.cu",
-                            "stencil_attention.cu", "upsample2x.cu"]
+                            "conv_wgmma.cuh",
+                            "maxpool2.cu", "stencil_attention.cu",
+                            "upsample2x.cu"]
     for f in srcs:
         with open(os.path.join(CSRC, f)) as fp:
             includes = re.findall(r"#\s*include\s*[<\"]([^>\"]+)", fp.read())

@@ -14,9 +14,11 @@ chip_smoke.compare_train, whose lines it prints with "pass" or the
 failure instead of exiting. Variants of st_dram_ref (the default):
 
 - sound: the tree as it is;
-- dw64: the weight-gradient kernel skips every 64th voxel of K (1.6%);
-- dw8: it skips every 8th voxel (12.5%);
-- st64: the conv kernel's statistics skip one row in each 64-row block.
+- dw64: the weight-gradient kernel skips every 64th K box (1.6% of K):
+  its dy box is loaded from outside the volume, all zeros;
+- dw8: it skips every 8th K box (12.5%);
+- st64: the conv kernel's statistics skip one row in each 64-row wgmma
+  tile (the first voxel of each 8 x 8 z-plane of a tile).
 
 Variants of st_dram_ref_att (the flagship, the attention kernels):
 
@@ -29,22 +31,21 @@ Variants of st_dram_ref_att with --unfused (USE_FUSED_STACK = False: the
 raw conv and its dW, the first-maximum max-pool backward):
 
 - sound: the tree as it is;
-- dw64: as above, the weight-gradient kernel skips every 64th voxel of K;
+- dw64: as above, the weight-gradient kernel skips every 64th K box;
 - tie_last: the first-maximum pool backward gives the cotangent to the
   LAST tied maximum of each window.
 """
 
 import argparse
 import os
-import shutil
-import subprocess
 import sys
 import tempfile
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC = os.path.join("dram_tpu_torch", "kernels", "csrc")
-DW_LINE = "    const bool vok = v < kend;"
-ST_LINE = "      if (m0 + r < V) {"
+from kernel_copies import ROOT, card_line, make_copy, run_in_copy
+
+DW_LINE = ("        wg::tma_load_5d(st + DW_A_BYTES, &map_dy, &full[s], n0, x0, "
+           "y0, z0,")
+ST_LINE = "                    valid[s][h] ? acc[s][q * 4 + h * 2 + e] : 0.f;"
 SA = "stencil_attention.cu"
 DPHI_LINE = "        for (int c = 0; c < F; ++c) dph[c] += ds2 * ti[c];"
 C_LINE = "    const float c = num / fmaxf(denom, 1e-12f);"
@@ -55,7 +56,8 @@ ATT_VARIANTS = {
     "c_undiv": (SA, C_LINE, "    const float c = num;"),
 }
 DW64 = ("conv3x3x3_dw.cu", DW_LINE,
-        "    const bool vok = v < kend && (v & 63) != 0;")
+        "        wg::tma_load_5d(st + DW_A_BYTES, &map_dy, &full[s], n0, x0, "
+        "y0, (kb & 63) ? z0 : -DW_BZ,")
 PICK_LINE = "        if (tie && pick[k] == 8) pick[k] = t;"
 UNFUSED_VARIANTS = {
     "sound": None,
@@ -66,8 +68,11 @@ VARIANTS = {
     "sound": None,
     "dw64": DW64,
     "dw8": ("conv3x3x3_dw.cu", DW_LINE,
-            "    const bool vok = v < kend && (v & 7) != 0;"),
-    "st64": ("conv3x3x3.cu", ST_LINE, "      if (m0 + r < V && r != 0) {"),
+            "        wg::tma_load_5d(st + DW_A_BYTES, &map_dy, &full[s], n0, "
+            "x0, y0, (kb & 7) ? z0 : -DW_BZ,"),
+    "st64": ("conv3x3x3.cu", ST_LINE,
+             "                    valid[s][h] && (warp | h | (lane >> 2)) "
+             "? acc[s][q * 4 + h * 2 + e] : 0.f;"),
 }
 LIMIT_S = 300
 
@@ -132,36 +137,18 @@ def main():
         raise SystemExit("--unfused goes with --config st_dram_ref_att")
     variants = UNFUSED_VARIANTS if args.unfused else ATT_VARIANTS \
         if args.config == "st_dram_ref_att" else VARIANTS
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=20).stdout.strip(), flush=True)
+    print(card_line(), flush=True)
     failed = []
     with tempfile.TemporaryDirectory() as tmp:
         for name, change in variants.items():
-            d = os.path.join(tmp, name)
-            shutil.copytree(os.path.join(ROOT, "dram_tpu_torch"),
-                            os.path.join(d, "dram_tpu_torch"),
-                            ignore=shutil.ignore_patterns("_build",
-                                                          "__pycache__"))
-            shutil.copy(os.path.join(ROOT, "chip_smoke.py"), d)
-            if change is not None:
-                src, old, new = change
-                path = os.path.join(d, CSRC, src)
-                text = open(path).read()
-                if text.count(old) != 1:
-                    raise SystemExit(f"{name}: line not found once in {src}")
-                with open(path, "w") as fp:
-                    fp.write(text.replace(old, new))
+            d = make_copy(tmp, name, [change] if change is not None else [])
             print(f"# variant {name}: "
                   f"{'as in the tree' if change is None else change[2]}",
                   flush=True)
-            r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                "--read", args.config,
-                                str(int(args.unfused))], cwd=d,
-                               timeout=LIMIT_S)
-            if r.returncode != 0:
-                print(f"# variant {name} exited {r.returncode}", flush=True)
+            rc = run_in_copy(d, __file__, ["--read", args.config,
+                                           str(int(args.unfused))], LIMIT_S)
+            if rc != 0:
+                print(f"# variant {name} exited {rc}", flush=True)
                 failed.append(name)
     if failed:
         raise SystemExit(f"variants that did not run to the end: {failed}")

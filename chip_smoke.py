@@ -60,6 +60,21 @@ traceback and a non-zero exit:
    largest, statistics within stats_tol, dW within 1e-3), launched twice
    with bitwise-equal results; at batch 10 its time, TFLOP/s and share of
    the bf16 bound beside cuDNN's time for the same conv.
+12. upsample sweep (after 11): every upsample launch, forward and adjoint,
+   of the scan (batch 5), the flagship step (batch 10) and the training
+   golden's step (batch 2 x 48^3), each against its plain version (2^-7
+   of the largest) and launched twice with bitwise-equal results; at
+   batch 5 and 10 its time, byte bound and share of it beside the
+   library call (F.interpolate / aten.upsample_trilinear3d_backward).
+13. train golden (last): the flagship's kernel step, fused and unfused, at
+   the published widths and bf16 activations on the training golden's
+   batch (golden.train_golden_batch, 2 x 48^3, -300 HU), held against
+   dram_tpu's float64 step (tools/make_port_train_golden.py): loss terms
+   and every gradient's cosine at the train gate's limits; the gradients'
+   relative L2 (per group) and the BatchNorm batch statistics at the
+   golden's own limits (GOLDEN_REL_L2, GOLDEN_BN_REL_L2), placed between
+   sound and broken kernels' readings; launch counts zeroed before each
+   step and read after (paths train_golden, train_golden_unfused).
 
 Prints a `{"kernels": [...]}` JSON line and, last, the device line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before it.
@@ -79,7 +94,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dram_tpu_torch import weights
+from dram_tpu_torch import golden, weights
 from dram_tpu_torch.configs import (st_dram_ref, st_dram_ref_att,
                                     with_settings)
 from dram_tpu_torch.data.synth import synth_scan, train_batch
@@ -97,7 +112,7 @@ LIMITS = {"card": 30, "build": 180, "kernel": 60, "weights": 60,
           "eval_conv_grad": 30, "train_att": 300, "train_att_plain": 300,
           "pipeline_unfused": 120, "plain_unfused": 120, "golden": 60,
           "train_unfused": 300, "train_unfused_plain": 300,
-          "conv_sweep": 240}
+          "conv_sweep": 240, "upsample_sweep": 120, "train_golden": 240}
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor-core
 # and f32 CUDA-core flop/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -113,6 +128,15 @@ TRAIN_STEPS = 3
 # the running ones. The sound kernels read 7.5e-3 and 4.4e-5 on the last
 # two; PERF.md gives the readings of deliberately broken kernels.
 LOSS_RTOL, GRAD_COS_MIN, GRAD_REL_L2, BN_REL_L2 = 1e-2, 0.99, 3e-2, 1e-3
+# the kernel step (bf16 activations) vs dram_tpu's float64 step (the
+# train golden): loss terms and cosine as above; the relative L2 of the
+# gradients' seeded projections per group, and of the BatchNorm batch
+# statistics, placed between the sound kernels' readings (backbone
+# 3.16e-2, PCM and tap heads 0.113, statistics 3.08e-3: bf16 rounding,
+# over the limits above) and those of broken ones (0.152, 0.762, 9.97e-2
+# at the nearest; PERF.md, the train golden table)
+GOLDEN_REL_L2 = {"backbone": 0.07, "PCM and tap heads": 0.3}
+GOLDEN_BN_REL_L2 = 1e-2
 
 
 @contextlib.contextmanager
@@ -555,15 +579,40 @@ def unfused_kernel_phases(gen):
     x[:, :, ::2] = x[:, :, 1::2]
     g = rnd(10, 40, 40, 40, 64)
     with phase("kernel maxpool2_bwd first", LIMITS["kernel"]):
-        # no PyTorch call gives the cotangent to the first tied maximum in
-        # (dz, dy, dx) order (F.max_pool3d's backward routes to its own
-        # argmax): no library
         res["maxpool2_bwd_first"] = check_kernel(
             "maxpool2_bwd_first", pool.maxpool2_bwd_first,
             pool.maxpool2_bwd_first_plain, (x, g), lambda yp: 0.0,
+            library=maxpool_first_library(x, g),
             work=lambda dx: (nbytes(x, g, dx), 16.0 * x.numel(), F32_FLOPS))
     del x, g
     return res
+
+
+def maxpool_first_library(x, g):
+    """PyTorch's max_pool3d_with_indices_backward with the indices of
+    F.max_pool3d(..., return_indices=True), computed once outside the
+    timed call (autograd keeps them from the forward): the library call
+    of the first-maximum pool backward, if its output equals the plain
+    version's on these tied inputs (else None, with the reason)."""
+    xl, gl = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+    _, idx = F.max_pool3d(xl, 2, 2, return_indices=True)
+
+    def lib():
+        return torch.ops.aten.max_pool3d_with_indices_backward(
+            gl, xl, [2, 2, 2], [2, 2, 2], [0, 0, 0], [1, 1, 1], False, idx)
+    got = lib().permute(0, 2, 3, 4, 1)
+    want = pool.maxpool2_bwd_first_plain(x, g)
+    torch.cuda.synchronize()
+    if torch.equal(got, want):
+        print("# maxpool2_bwd_first library: max_pool3d_with_indices_"
+              "backward with F.max_pool3d's indices equals the plain "
+              "version", flush=True)
+        return lib
+    print(f"# maxpool2_bwd_first library: max_pool3d_with_indices_backward "
+          f"differs from the plain version at "
+          f"{int((got != want).sum())} elements; library_ms null",
+          flush=True)
+    return None
 
 
 def eval_conv_grad_phase(gen):
@@ -800,6 +849,86 @@ def conv_sweep_phase(gen):
     return records
 
 
+def upsample_launches():
+    """(kind, level, B, input edge, C) of every upsample launch: the
+    scan's forwards (batch 5) and the flagship step's forwards and
+    adjoints (batch 10) at its three decoder levels (read from
+    conv_shapes: a level's conv_0 takes [upsample | skip]), then the
+    training golden's step (batch 2 x 48^3), whose edges are not powers
+    of two."""
+    levels = [(name.split(".")[0], e // 2, c1)
+              for name, e, (c1, c2), co in conv_shapes() if c2]
+    small = [(name.split(".")[0], e // 2, c1)
+             for name, e, (c1, c2), co in conv_shapes(48) if c2]
+    return ([("fwd", lv, 5, e, c) for lv, e, c in levels]
+            + [(k, lv, 10, e, c) for k in ("fwd", "bwd")
+               for lv, e, c in levels]
+            + [(k, lv, 2, e, c) for k in ("fwd", "bwd")
+               for lv, e, c in small])
+
+
+def upsample_sweep_phase(gen):
+    """Every upsample launch (upsample_launches): the kernel against its
+    plain version (within 2^-7 of the largest value), launched twice with
+    bitwise-equal results; at the scan's and the step's batches its time,
+    byte bound and share of it, beside the library call's time
+    (F.interpolate trilinear align_corners / its aten backward). Returns
+    the per-launch records."""
+    records = []
+    for kind, lv, B, e, C in upsample_launches():
+        fwd = kind == "fwd"
+        shape = (B, e, e, e, C) if fwd else (B, 2 * e, 2 * e, 2 * e, C)
+        x = torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        new, plain = (upsample.upsample2x, upsample.upsample2x_plain) \
+            if fwd else (upsample.upsample2x_bwd,
+                         upsample.upsample2x_bwd_plain)
+        y, yp, y2 = new(x), plain(x), new(x)
+        torch.cuda.synchronize()
+        err = (y.float() - yp.float()).abs().max().item()
+        allowed = 2 ** -7 * yp.float().abs().max().item()
+        same = torch.equal(y, y2)
+        tag = f"{kind} {lv} {B}x{shape[1]}^3x{C}"
+        rec = {"kind": kind, "level": lv, "batch": B, "shape": list(shape),
+               "max_abs_err": err, "allowed": allowed}
+        line = (f"# upsample sweep {tag}: max_abs_err {err:.3g} (allowed "
+                f"{allowed:.3g}), repeat "
+                f"{'bitwise equal' if same else 'DIFFERS'}")
+        if not err <= allowed:
+            fail(f"upsample sweep {tag}: disagrees with its plain version")
+        if not same:
+            fail(f"upsample sweep {tag}: two launches differ bitwise")
+        if B != 2:
+            xl = x.permute(0, 4, 1, 2, 3)
+            def lib():
+                if fwd:
+                    return F.interpolate(xl, scale_factor=2,
+                                         mode="trilinear", align_corners=True)
+                return torch.ops.aten.upsample_trilinear3d_backward(
+                    xl, [2 * e] * 3, [B, C, e, e, e], True)
+            ms = cuda_ms(lambda: new(x))
+            lib_ms = cuda_ms(lib)
+            bound_ms, _ = bound(nbytes(x, y), 0.0, F32_FLOPS)
+            rec.update(ms=ms, bound_ms=bound_ms, share=bound_ms / ms,
+                       library_ms=lib_ms)
+            line += (f"; ms {ms:.4f}, bound {bound_ms:.4f} ms (bytes), "
+                     f"{100 * bound_ms / ms:.1f}% of it; library "
+                     f"{lib_ms:.4f} ms")
+            del xl
+        print(line, flush=True)
+        records.append(rec)
+        del x, y, yp, y2
+        torch.cuda.empty_cache()
+    for kind, B in (("fwd", 5), ("fwd", 10), ("bwd", 10)):
+        sel = [r for r in records if r["kind"] == kind and r["batch"] == B]
+        print(f"# upsample sweep totals {kind} batch {B} (ms, kernel / "
+              f"bound / library): {sum(r['ms'] for r in sel):.4f} / "
+              f"{sum(r['bound_ms'] for r in sel):.4f} / "
+              f"{sum(r['library_ms'] for r in sel):.4f}", flush=True)
+    print("# upsample sweep " + json.dumps(records), flush=True)
+    return records
+
+
 WRAPPERS = {"conv3x3x3": (conv_stack, "conv3x3x3"),
             "maxpool2": (pool, "maxpool2"),
             "upsample2x": (upsample, "upsample2x"),
@@ -883,6 +1012,10 @@ PATHS = {"pipeline": ("conv3x3x3", "maxpool2", "upsample2x",
          "train_unfused": ("conv3d", "conv3d_dx", "conv3d_dw", "maxpool2",
                            "maxpool2_bwd_first", "upsample2x",
                            "upsample2x_bwd") + ATTENTION_TRAIN}
+# the training golden's step (golden.train_golden_batch, 2 x 48^3) with
+# the fused and the unfused stack
+PATHS["train_golden"] = PATHS["train_att"]
+PATHS["train_golden_unfused"] = PATHS["train_unfused"]
 
 
 @contextlib.contextmanager
@@ -1192,6 +1325,115 @@ def golden_phase(draw, prepc, runs):
         compare_masks(out, ref, f"{label} vs dram_tpu's golden")
 
 
+def golden_step(settings, bench):
+    """One step of `settings` with the kernels (bf16 activations, the f32
+    image wire) on the training golden's batch from the trained tree:
+    (loss terms, golden.summarize fields)."""
+    batch = golden.train_golden_batch()
+    got = {}
+
+    def on_step(i, step, r):
+        m = step.model
+        got["grads"] = {n: p.grad.detach().double().cpu().numpy()
+                        for n, p in m.named_parameters()}
+        got["params"] = {n: p.detach().double().cpu().numpy()
+                         for n, p in m.named_parameters()}
+        got["buffers"] = {n: b.detach().double().cpu().numpy()
+                          for n, b in m.named_buffers()}
+    out = train_steps(with_settings(settings, TRAIN_WIRE="f32"), 1, [batch],
+                      device="cuda", weights_path=bench, on_step=on_step)
+    initial = {n: t.double().numpy() for n, t in weights.from_jax(
+        *weights.load_bench_weights(bench)).items()}
+    for n, g in got["grads"].items():
+        if not np.isfinite(g).all():
+            fail(f"train golden: non-finite gradient of {n}")
+    return np.asarray(out["losses"][0]), golden.summarize(
+        got["grads"], got["buffers"], initial, got["params"], initial)
+
+
+def golden_readings(losses, fields, gold, label):
+    """Hold one kernel step against dram_tpu's float64 step (the golden):
+    loss terms (relative, LOSS_RTOL), every gradient's seeded projections
+    (cosine, GRAD_COS_MIN; relative L2 per group, GOLDEN_REL_L2; the tap
+    heads' conv biases, zero in exact arithmetic, are printed), the
+    BatchNorm batch statistics (relative L2, GOLDEN_BN_REL_L2). Prints
+    the readings, the update's as information; returns the failures."""
+    read = golden.readings(fields, gold)
+    rel = np.abs(losses - gold["losses"]) / np.abs(gold["losses"])
+    proj = {k.split("/", 1)[1]: v for k, v in read.items()
+            if k.startswith("grad_proj/")}
+    live = {n: v for n, v in proj.items()
+            if not golden.zero_in_exact_arithmetic(n)}
+    bn = {k.split("/", 1)[1]: v[0] for k, v in read.items()
+          if k.startswith("bn/")}
+    upd = {k.split("/", 1)[1]: v for k, v in read.items()
+           if k.startswith("update_proj/")
+           and not golden.zero_in_exact_arithmetic(k.split("/", 1)[1])}
+    wb = max(bn, key=bn.get)
+    wu = max(upd, key=lambda n: upd[n][0])
+    heads = [n for n in live if n.startswith(("attention_module.",
+                                              "reshape_"))]
+    groups = {"backbone": [n for n in live if n not in heads],
+              "PCM and tap heads": heads}
+    print(f"# train golden {label} vs dram_tpu's float64 step: loss terms "
+          f"{losses.tolist()} vs {gold['losses'].tolist()} (rel "
+          f"{rel.max():.3g}, allowed {LOSS_RTOL}); BatchNorm batch "
+          f"statistics of {len(bn)}: worst relative L2 {bn[wb]:.3g} ({wb}, "
+          f"allowed {GOLDEN_BN_REL_L2})", flush=True)
+    bad = []
+    for group, names in groups.items():
+        gc = min(names, key=lambda n: live[n][1])
+        gr = max(names, key=lambda n: live[n][0])
+        print(f"# train golden {label} {group}: gradient projections of "
+              f"{len(names)} parameters: worst cosine {live[gc][1]:.6f} "
+              f"({gc}, allowed {GRAD_COS_MIN}), worst relative L2 "
+              f"{live[gr][0]:.3g} ({gr}, allowed {GOLDEN_REL_L2[group]})",
+              flush=True)
+        if not (live[gc][1] >= GRAD_COS_MIN
+                and live[gr][0] <= GOLDEN_REL_L2[group]):
+            bad.append(f"{group} gradients")
+    print(f"# train golden {label} (information): Adam update projections "
+          f"worst relative L2 {upd[wu][0]:.3g} ({wu}), cosine "
+          f"{upd[wu][1]:.6f}; tap-head conv bias gradients (zero in exact "
+          f"arithmetic) "
+          + ", ".join(f"{n} |proj| {v[0]:.3g}" for n, v in proj.items()
+                      if golden.zero_in_exact_arithmetic(n)), flush=True)
+    if not rel.max() <= LOSS_RTOL:
+        bad.append("loss terms")
+    if not bn[wb] <= GOLDEN_BN_REL_L2:
+        bad.append("BatchNorm statistics")
+    return bad
+
+
+def train_golden_phase(bench, launches, configs):
+    """The kernel step at full width on the training golden's batch,
+    against dram_tpu's float64 step (GOLDEN: tools/make_port_train_golden.
+    py), for each (path, settings) of `configs`, launch counts zeroed
+    just before each step and read just after."""
+    with np.load(golden.TRAIN_GOLDEN) as z:
+        gold = {k: z[k] for k in z.files}
+    if golden.batch_sha256(golden.train_golden_batch()) \
+            != str(gold["batch_sha256"]):
+        fail("train golden: this host made another batch (sha256 differs "
+             "from the golden's)")
+    print(f"# train golden {os.path.relpath(golden.TRAIN_GOLDEN, ROOT)} "
+          f"(jax {gold['jax_version']}): batch {golden.TRAIN_BATCH} x "
+          f"{golden.TRAIN_SIZE}^3, seed {golden.TRAIN_SEED}, the same "
+          "sha256", flush=True)
+    failed = []
+    for path, settings in configs:
+        zero_counts()
+        losses, fields = golden_step(settings, bench)
+        launches[path] = path_counts(path)
+        label = path[len("train_golden"):].strip("_") or "fused"
+        bad = golden_readings(losses, fields, gold, label)
+        failed += [f"{label}: {b}" for b in bad]
+        torch.cuda.empty_cache()
+    if failed:
+        fail(f"train golden: the kernel step disagrees with dram_tpu's "
+             f"float64 step ({', '.join(failed)})")
+
+
 def unfused_vs_fused(f, u):
     """Information, no gate: the unfused and the fused kernel runs of the
     flagship step compute one function with two rounding configurations;
@@ -1304,6 +1546,9 @@ def main():
     with phase("conv sweep", LIMITS["conv_sweep"]):
         conv_sweep_phase(gen)
     torch.cuda.empty_cache()
+    with phase("upsample sweep", LIMITS["upsample_sweep"]):
+        upsample_sweep_phase(gen)
+    torch.cuda.empty_cache()
 
     bench = os.path.join(ROOT, "assets", "bench_weights.ckpt.xz")
     train_phases(st_dram_ref, "train", bench, lambda: dict(
@@ -1332,6 +1577,13 @@ def main():
     check_head_grads(uk_run, "unfused kernels")
     check_head_grads(up_run, "unfused plain versions")
     unfused_vs_fused(k_run, uk_run)
+    del k_run, uk_run, up_run
+    torch.cuda.empty_cache()
+
+    with phase("train golden", LIMITS["train_golden"]):
+        train_golden_phase(bench, launches,
+                           (("train_golden", st_dram_ref_att),
+                            ("train_golden_unfused", unfused)))
 
     kernels = []
     for k in WRAPPERS:

@@ -49,8 +49,9 @@ SIGNATURES = {
     "conv3x3x3_dw_wgmma_smem": [],
     "maxpool2_bf16": [_P, _P, _I64, _I64, _I64, _I64, _I64, _P],
     "maxpool2_bwd_bf16": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _P],
-    "upsample2x_bf16": [_P, _P, _I64, _I64, _I64, _I64, _I64, _P],
-    "upsample2x_bwd_bf16": [_P, _P, _I64, _I64, _I64, _I64, _I64, _P],
+    "upsample2x_bf16": [_P, _P, _I64, _I64, _I64, _I64, _I64, _PI64, _P],
+    "upsample2x_bwd_bf16": [_P, _P, _I64, _I64, _I64, _I64, _I64, _PI64,
+                            _P],
     "stencil_attention_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "stencil_attention_scal_f32": [_P, _P, _P, _P, _P, _I64, _I64, _I64,
                                    _I64, _P],

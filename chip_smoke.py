@@ -66,7 +66,18 @@ traceback and a non-zero exit:
    of the largest) and launched twice with bitwise-equal results; at
    batch 5 and 10 its time, byte bound and share of it beside the
    library call (F.interpolate / aten.upsample_trilinear3d_backward).
-13. train golden (last): the flagship's kernel step, fused and unfused, at
+13. attention sweep (after 12): ptxas's report (registers, spills) of the
+   plane-ring attention kernels (forward and gradient pass), then every
+   stencil-attention launch of the scan (forward, batch 5), the flagship
+   step (forward, statistics and gradient passes, batch 10) and the
+   training golden's step (batch 2), all at 64^3 on a 1/8 grid: each
+   against its plain version (1e-4 of the largest), launched twice with
+   bitwise-equal results, timed (per launch, over 10 back to back)
+   beside its byte bound with its share of it and its plan's tile and
+   dynamic shared memory; at batch 2 also
+   StencilAttentionFunction's gradients against autograd through the
+   plain forward (1e-4).
+14. train golden (last): the flagship's kernel step, fused and unfused, at
    the published widths and bf16 activations on the training golden's
    batch (golden.train_golden_batch, 2 x 48^3, -300 HU), held against
    dram_tpu's float64 step (tools/make_port_train_golden.py): loss terms
@@ -112,7 +123,8 @@ LIMITS = {"card": 30, "build": 180, "kernel": 60, "weights": 60,
           "eval_conv_grad": 30, "train_att": 300, "train_att_plain": 300,
           "pipeline_unfused": 120, "plain_unfused": 120, "golden": 60,
           "train_unfused": 300, "train_unfused_plain": 300,
-          "conv_sweep": 240, "upsample_sweep": 120, "train_golden": 240}
+          "conv_sweep": 240, "upsample_sweep": 120, "attention_sweep": 120,
+          "train_golden": 240}
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor-core
 # and f32 CUDA-core flop/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -929,6 +941,121 @@ def upsample_sweep_phase(gen):
     return records
 
 
+# the plane-ring attention kernels (csrc/stencil_attention.cu)
+ATTENTION_RING_KERNELS = ("stencil_attention_kernel",
+                          "stencil_attention_bwd_kernel")
+# the attention sweep times this many launches back to back and reports
+# the time per launch: timed alone, a call's host time in the Python
+# wrapper, which the device waits for, is about as long as a batch-2
+# launch (tools/attention_variants.py, wrapper against direct launches)
+ATT_REPEAT = 10
+
+
+def attention_launches():
+    """(pass, batch) of every stencil-attention launch, all on the PCM's
+    64^3 grid: the scan's forward (batch 5), the flagship step's forward,
+    statistics and gradient passes (batch 10), and the training golden's
+    step (batch 2)."""
+    return [("fwd", 5), ("fwd", 10), ("scal", 10), ("bwd", 10), ("fwd", 2),
+            ("scal", 2), ("bwd", 2)]
+
+
+def ptxas_report(kernels):
+    """Print ptxas's lines (-Xptxas -v: registers, shared memory, spills)
+    of the named __global__ functions of the build."""
+    entry = None
+    for line in open(_build.ptxas_log_path()).read().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = next((k for k in kernels if k in m.group(1)), None)
+            continue
+        if entry and ("registers" in line or "spill" in line):
+            print(f"# ptxas {entry}: {line.split(':', 1)[-1].strip()}",
+                  flush=True)
+
+
+def attention_sweep_phase(gen):
+    """Every stencil-attention launch (attention_launches) against its
+    plain version within 1e-4 of the largest value, on inputs on a 1/8
+    grid (every dot product exact in f32, so both sides take the same
+    side of the relu kink), launched twice with bitwise-equal results,
+    then timed per launch over ATT_REPEAT launches back to back beside
+    its byte bound (each input read once, each output written once); at
+    batch 2 StencilAttentionFunction's gradients
+    against autograd through the plain forward. Returns the records."""
+    wa = window_attention
+    ptxas_report(ATTENTION_RING_KERNELS)
+    # bytes a voxel moves: theta, phi, g in, out (forward); those, ybar
+    # in, four statistics out; those four and the statistics in, three
+    # gradients out
+    voxel_bytes = {"fwd": 128, "scal": 144, "bwd": 240}
+    rel = lambda yp: 1e-4 * yp.abs().max().item()  # noqa: E731
+    records = []
+    for kind, B in attention_launches():
+        th, ph, g, yb = (torch.round(torch.randn(
+            B, 64, 64, 64, 8, generator=gen, device="cuda") * 8) / 8
+            for _ in range(4))
+        args = (th, ph, g) if kind == "fwd" else (th, ph, g, yb)
+        fn, plain = {"fwd": (wa.stencil_attention, wa.stencil_attention_plain),
+                     "scal": (wa.stencil_attention_scal,
+                              wa.stencil_attention_scal_plain),
+                     "bwd": (wa.stencil_attention_bwd,
+                             wa.stencil_attention_bwd_plain)}[kind]
+        if kind == "bwd":
+            args = args + (wa.stencil_attention_scal_plain(*args),)
+        with torch.no_grad():
+            y, yp, y2 = (_outputs(f(*args)) for f in (fn, plain, fn))
+            torch.cuda.synchronize()
+            err = max((a - b).abs().max().item() for a, b in zip(y, yp))
+            allowed = min(rel(b) for b in yp)
+            same = all(torch.equal(a, b) for a, b in zip(y, y2))
+            ms = cuda_ms(lambda: [fn(*args) for _ in range(ATT_REPEAT)]) \
+                / ATT_REPEAT
+        bound_ms, _ = bound(B * 64 ** 3 * voxel_bytes[kind], 0.0, F32_FLOPS)
+        plan = (wa.fwd_plan if kind == "fwd" else wa.bwd_plan)(
+            B, 64, 64, 64) if kind != "scal" else None
+        tag = f"{kind} {B}x64^3"
+        rec = {"kind": kind, "batch": B, "max_abs_err": err,
+               "allowed": allowed, "ms": ms, "bound_ms": bound_ms,
+               "share": bound_ms / ms,
+               "tile": list(plan["run"]) if plan else None,
+               "smem": plan["smem"] if plan else None}
+        line = (f"# attention sweep {tag}: max_abs_err {err:.3g} (allowed "
+                f"{allowed:.3g}), repeat "
+                f"{'bitwise equal' if same else 'DIFFERS'}; ms {ms:.4f}, "
+                f"bound {bound_ms:.4f} ms (bytes), "
+                f"{100 * bound_ms / ms:.1f}% of it")
+        if plan:
+            line += (f"; tile {plan['run']}, {plan['blocks']} blocks, "
+                     f"{plan['smem']} bytes of dynamic shared memory")
+        print(line, flush=True)
+        if not err <= allowed:
+            fail(f"attention sweep {tag}: disagrees with its plain version")
+        if not same:
+            fail(f"attention sweep {tag}: two launches differ bitwise")
+        if kind == "bwd" and B == 2:
+            leaves = [t.clone().requires_grad_() for t in (th, ph, g)]
+            got = torch.autograd.grad(wa.stencil_attention(*leaves), leaves,
+                                      yb)
+            want = torch.autograd.grad(wa.stencil_attention_plain(*leaves),
+                                       leaves, yb)
+            for name, a, b in zip(("dtheta", "dphi", "dg"), got, want):
+                e = (a - b).abs().max().item()
+                print(f"# attention sweep StencilAttentionFunction {name} "
+                      f"at batch 2 vs autograd of the plain forward: "
+                      f"max_abs_err {e:.3g} (allowed {rel(b):.3g})",
+                      flush=True)
+                if not e <= rel(b):
+                    fail(f"StencilAttentionFunction {name} disagrees with "
+                         "autograd at batch 2")
+            del leaves, got, want
+        records.append(rec)
+        del th, ph, g, yb, args, y, yp, y2
+        torch.cuda.empty_cache()
+    print("# attention sweep " + json.dumps(records), flush=True)
+    return records
+
+
 WRAPPERS = {"conv3x3x3": (conv_stack, "conv3x3x3"),
             "maxpool2": (pool, "maxpool2"),
             "upsample2x": (upsample, "upsample2x"),
@@ -1548,6 +1675,9 @@ def main():
     torch.cuda.empty_cache()
     with phase("upsample sweep", LIMITS["upsample_sweep"]):
         upsample_sweep_phase(gen)
+    torch.cuda.empty_cache()
+    with phase("attention sweep", LIMITS["attention_sweep"]):
+        attention_sweep_phase(gen)
     torch.cuda.empty_cache()
 
     bench = os.path.join(ROOT, "assets", "bench_weights.ckpt.xz")

@@ -52,11 +52,12 @@ SIGNATURES = {
     "upsample2x_bf16": [_P, _P, _I64, _I64, _I64, _I64, _I64, _PI64, _P],
     "upsample2x_bwd_bf16": [_P, _P, _I64, _I64, _I64, _I64, _I64, _PI64,
                             _P],
-    "stencil_attention_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
+    "stencil_attention_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                              _PI64, _P],
     "stencil_attention_scal_f32": [_P, _P, _P, _P, _P, _I64, _I64, _I64,
                                    _I64, _P],
     "stencil_attention_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I64,
-                                  _I64, _I64, _I64, _P],
+                                  _I64, _I64, _I64, _PI64, _P],
 }
 
 _lock = threading.Lock()

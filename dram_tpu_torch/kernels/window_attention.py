@@ -8,15 +8,45 @@ branch: the forward (_fwd_kernel) and the two passes of its backward
 gradients _bwd_kernel), bound together by StencilAttentionFunction. CUDA
 source: csrc/stencil_attention.cu. The plain versions are the roll+mask
 formulation of dram_tpu/models/pcm.py.
+
+The launch geometry of the forward and the gradient pass is decided here
+(fwd_plan, bwd_plan): a block owns a tile of (batch element, run of
+z-planes, run of rows, run of columns) and streams it along z through a
+ring of shared-memory plane buffers, each holding the tile's rows and
+columns with a +-1 halo. The plans raise where a tile plan would leave a
+voxel uncovered; the C launchers run the `args` vector they are handed
+and refuse one whose buffers or coverage differ from the kernel's.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
 from . import _build
+
+# threads a block may have (csrc/stencil_attention.cu: FWD_THREADS,
+# BWD_THREADS: two for each voxel of the tile's plane, in warps that share
+# 16 voxels (forward) or warp pairs that share 32 (gradient pass), and a
+# producer warp)
+FWD_THREADS, BWD_THREADS = 288, 288
+# bytes of one staged voxel: phi, g, theta (forward); phi, g, theta, ybar
+# and the four statistics (gradient pass)
+FWD_VOXEL, BWD_VOXEL = 3 * 32, 4 * 32 + 16
+# the tile the plans take where the grid allows: (planes, rows, columns)
+# per tile, forward and gradient pass. On the card (NVIDIA H100 80GB
+# HBM3, 700 W; tools/attention_variants.py) 8 rows of 16 columns and 16
+# planes a run were within a few percent of the best of 24 tiles of 64 to
+# 128 voxels at every attention launch of the flagship: their buffers
+# leave room for three forward blocks (two gradient blocks) on an SM.
+# Deeper rings than NBUF gained nothing.
+FWD_RUNS = BWD_RUNS = (16, 8, 16)
+# plane buffers: three read (z - 1, z, z + 1) while a fourth loads
+NBUF, MAX_NBUF = 4, 8
+# shared memory a block may have; the ring's mbarriers
+SMEM_BLOCK, BAR_BYTES = 227 * 1024, 128
 
 
 @functools.lru_cache(maxsize=8)
@@ -107,6 +137,92 @@ def _check_grid(name, offsets, *ts):
     return shape[:4]
 
 
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _smem(nbuf, rows, cols, voxel):
+    """Dynamic shared memory of a block: the mbarriers' BAR_BYTES, then
+    nbuf buffers of rows x cols staged voxels (csrc/stencil_attention.cu:
+    smem_bytes)."""
+    return BAR_BYTES + nbuf * rows * cols * voxel
+
+
+def _threads(yr, xr):
+    """Threads of a block whose tile plane has yr x xr voxels: two a
+    voxel, in whole warp pairs of 32 voxels, and the producer warp."""
+    return 64 * _cdiv(yr * xr, 32) + 32
+
+
+def _plan(B, D, H, W, bwd, runs=None, nbuf=None):
+    """The tile plan of one launch (fwd_plan / bwd_plan)."""
+    if min(D, H, W) < 1 or B < 0:
+        raise ValueError(f"stencil_attention plan: empty grid "
+                         f"{(B, D, H, W)}")
+    zr, yr, xr = runs or tuple(min(r, n) for r, n in zip(
+        BWD_RUNS if bwd else FWD_RUNS, (D, H, W)))
+    nbuf = nbuf or NBUF
+    tiles = (_cdiv(W, xr), _cdiv(H, yr), _cdiv(D, zr))
+    rows, cols = min(yr + 2, H), min(xr + 2, W)
+    threads = _threads(yr, xr)
+    smem = _smem(nbuf, rows, cols, BWD_VOXEL if bwd else FWD_VOXEL)
+    p = {"run": (zr, yr, xr), "tiles": tiles,
+         "blocks": B * tiles[0] * tiles[1] * tiles[2], "rows": rows,
+         "cols": cols, "nbuf": nbuf, "threads": threads, "smem": smem,
+         "args": (zr, yr, xr, *tiles, rows, cols, nbuf, threads, smem)}
+    return _check(p, B, D, H, W, bwd)
+
+
+def _check(p, B, D, H, W, bwd):
+    """Raise unless plan `p` covers every voxel once, within its buffers
+    and the card's limits."""
+    zr, yr, xr = p["run"]
+    tx, ty, tz = p["tiles"]
+    if tx * xr < W or ty * yr < H or tz * zr < D:
+        raise ValueError(f"stencil_attention plan {p['args']} leaves voxels "
+                         f"of {(B, D, H, W)} uncovered")
+    voxel, most = (BWD_VOXEL, BWD_THREADS) if bwd \
+        else (FWD_VOXEL, FWD_THREADS)
+    if p["rows"] != min(yr + 2, H) or p["cols"] != min(xr + 2, W) \
+            or not 3 <= p["nbuf"] <= MAX_NBUF \
+            or p["smem"] != _smem(p["nbuf"], p["rows"], p["cols"], voxel):
+        raise ValueError(f"stencil_attention plan {p['args']}: buffers "
+                         "differ from the kernel's")
+    if p["threads"] != _threads(yr, xr) or p["threads"] > most \
+            or p["smem"] > SMEM_BLOCK:
+        raise ValueError(f"stencil_attention plan {p['args']}: block too "
+                         "large")
+    return p
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_plan(B, D, H, W, runs=None, nbuf=None):
+    """Geometry of one launch of csrc/stencil_attention.cu's forward on a
+    (B, D, H, W) grid: runs (ZR planes, YR rows, XR columns) per tile
+    (FWD_RUNS, clipped to the grid, unless `runs` is given), the tile grid
+    (x fastest, then y, z, batch element), the staged rows and columns per
+    plane buffer (the run and its +-1 halo, clipped), the ring's nbuf
+    buffers (NBUF unless given) and the threads: two a voxel of the
+    tile's plane, lanes l and l + 16 of a warp, each over nine of the
+    offsets, and the producer warp. `args` is the vector the launcher
+    runs."""
+    return _plan(B, D, H, W, False, runs, nbuf)
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(B, D, H, W, runs=None, nbuf=None):
+    """Geometry of one launch of csrc/stencil_attention.cu's gradient pass
+    on a (B, D, H, W) grid: as fwd_plan, with BWD_RUNS, the gradient
+    pass's staged voxel (phi, g, theta, ybar and the statistics, 144
+    bytes) and two threads a voxel in warps of one side each (+o, -o) that
+    share 32 voxels."""
+    return _plan(B, D, H, W, True, runs, nbuf)
+
+
+def _args(vals):
+    return (ctypes.c_int64 * len(vals))(*vals)
+
+
 def _forward(theta, phi, g, offsets):
     """The forward: CUDA tensors launch csrc/stencil_attention.cu (else
     raise); CPU tensors take the plain version."""
@@ -114,8 +230,12 @@ def _forward(theta, phi, g, offsets):
         return stencil_attention_plain(theta, phi, g, offsets)
     B, D, H, W = _check_grid("stencil_attention", offsets, theta, phi, g)
     out = torch.empty_like(g)
+    if out.numel() == 0:
+        return out
+    plan = fwd_plan(B, D, H, W)
     _build.launch("stencil_attention_f32", theta.data_ptr(), phi.data_ptr(),
-                  g.data_ptr(), out.data_ptr(), B, D, H, W)
+                  g.data_ptr(), out.data_ptr(), B, D, H, W,
+                  _args(plan["args"]))
     stencil_attention.launches += 1
     return out
 
@@ -209,10 +329,13 @@ def stencil_attention_bwd(theta, phi, g, ybar, scal, offsets=KERNEL_OFFSETS):
                          f"does not fit {(B, D, H, W)}")
     _build.check_operand(scal, torch.float32, "stencil_attention_bwd scal")
     dtheta, dphi, dg = (torch.empty_like(t) for t in (theta, phi, g))
+    if dtheta.numel() == 0:
+        return dtheta, dphi, dg
+    plan = bwd_plan(B, D, H, W)
     _build.launch("stencil_attention_bwd_f32", theta.data_ptr(),
                   phi.data_ptr(), g.data_ptr(), ybar.data_ptr(),
                   scal.data_ptr(), dtheta.data_ptr(), dphi.data_ptr(),
-                  dg.data_ptr(), B, D, H, W)
+                  dg.data_ptr(), B, D, H, W, _args(plan["args"]))
     stencil_attention_bwd.launches += 1
     return dtheta, dphi, dg
 

@@ -13,16 +13,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join("dram_tpu_torch", "kernels", "csrc")
 
 
-def make_copy(tmp, name, edits):
-    """dram_tpu_torch/ and chip_smoke.py copied to tmp/name, with `edits`
+def make_copy(tmp, name, edits, root=ROOT):
+    """dram_tpu_torch/ and chip_smoke.py of `root` (the checkout, or an
+    unpacked archive of another commit) copied to tmp/name, with `edits`
     applied to the copy: (file, text, its replacement) each, the text
     found exactly once; a file name is one of csrc/, a path with a "/"
     one of dram_tpu_torch/. Returns the copy's directory."""
     d = os.path.join(tmp, name)
-    shutil.copytree(os.path.join(ROOT, "dram_tpu_torch"),
+    shutil.copytree(os.path.join(root, "dram_tpu_torch"),
                     os.path.join(d, "dram_tpu_torch"),
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), d)
+    shutil.copy(os.path.join(root, "chip_smoke.py"), d)
     for src, old, new in edits:
         path = os.path.join(d, "dram_tpu_torch", src) if "/" in src \
             else os.path.join(d, CSRC, src)

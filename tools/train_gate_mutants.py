@@ -25,7 +25,11 @@ Variants of st_dram_ref_att (the flagship, the attention kernels):
 - sound: the tree as it is;
 - dphi1: the attention gradient pass drops the -o contribution of one of
   the 18 offsets, (-1, -1, 0), to dphi;
-- c_undiv: the statistics pass leaves c undivided by denom.
+- c_undiv: the statistics pass leaves c undivided by denom;
+- fwd_halo: the attention forward's plane ring skips each tile's -1 halo
+  row (the buffer's first row keeps whatever it held);
+- scal_late: the attention gradient pass reads the statistics of the
+  neighbours a plane behind from the plane after them (one plane late).
 
 Variants of st_dram_ref_att with --unfused (USE_FUSED_STACK = False: the
 raw conv and its dW, the first-maximum max-pool backward):
@@ -52,7 +56,11 @@ golden` phase). Variants:
 - st64: as above, the conv kernel's statistics skip one row in 64 (a
   forward fault: it moves the BatchNorm batch statistics);
 - dphi1: as above, the attention gradient drops one offset's -o
-  contribution to dphi (a fault of the PCM's gradient).
+  contribution to dphi (a fault of the PCM's gradient);
+- fwd_halo, scal_late: as above, the two attention staging faults.
+
+With --golden the kernel checks also run chip_smoke's attention sweep.
+`--variants a,b` reads only the named variants.
 """
 
 import argparse
@@ -66,13 +74,19 @@ DW_LINE = ("        wg::tma_load_5d(st + DW_A_BYTES, &map_dy, &full[s], n0, x0, 
            "y0, z0,")
 ST_LINE = "                    valid[s][h] ? acc[s][q * 4 + h * 2 + e] : 0.f;"
 SA = "stencil_attention.cu"
-DPHI_LINE = "        for (int c = 0; c < F; ++c) dph[c] += ds2 * ti[c];"
+DPHI_LINE = ("          for (int e = 0; e < F; ++e) "
+             "dph[e] = fmaf(ds2, ti[e], dph[e]);")
 C_LINE = "    const float c = num / fmaxf(denom, 1e-12f);"
+HALO_LINE = "  const int sr0 = t.ry0, sr1 = t.ry1;"
+SCAL_LINE = "          const float* ss = sp;"
 ATT_VARIANTS = {
     "sound": None,
-    "dphi1": (SA, DPHI_LINE, "        for (int c = 0; c < F; ++c) "
-              "dph[c] += (k == 1 ? 0.f : ds2) * ti[c];"),
+    "dphi1": (SA, DPHI_LINE, "          for (int e = 0; e < F; ++e) "
+              "dph[e] = fmaf(k == 1 ? 0.f : ds2, ti[e], dph[e]);"),
     "c_undiv": (SA, C_LINE, "    const float c = num;"),
+    "fwd_halo": (SA, HALO_LINE, "  const int sr0 = t.ya, sr1 = t.ry1;"),
+    "scal_late": (SA, SCAL_LINE,
+                  "          const float* ss = dz > 0 ? slot[1] : sp;"),
 }
 DW64 = ("conv3x3x3_dw.cu", DW_LINE,
         "        wg::tma_load_5d(st + DW_A_BYTES, &map_dy, &full[s], n0, x0, "
@@ -104,6 +118,8 @@ GOLDEN_VARIANTS = {
                  "const int ya = ty * p.yr, yb = min(ya + p.yr, 2 * H - 1);"),
     "st64": VARIANTS["st64"],
     "dphi1": ATT_VARIANTS["dphi1"],
+    "fwd_halo": ATT_VARIANTS["fwd_halo"],
+    "scal_late": ATT_VARIANTS["scal_late"],
 }
 LIMIT_S = 300
 
@@ -198,6 +214,8 @@ def read_golden():
             cs.fail("dW disagrees with its plain version")
     gate("kernel check upsample sweep", lambda: cs.upsample_sweep_phase(gen))
     gate("kernel check dW", dw_check)
+    gate("kernel check attention sweep",
+         lambda: cs.attention_sweep_phase(gen))
     torch.cuda.empty_cache()
     bench = os.path.join(ROOT, "assets", "bench_weights.ckpt.xz")
     batch = train_batch(cs.SEED, batch=settings.TRAIN_BATCH_SIZE,
@@ -229,12 +247,20 @@ def main():
     ap.add_argument("--golden", action="store_true",
                     help="the kernel checks, the flagship's train gate and "
                     "the train golden gate of the upsample and dW variants")
+    ap.add_argument("--variants", help="comma-separated names to read "
+                    "(default: all of the mode's)")
     args = ap.parse_args()
     if args.unfused and args.config != "st_dram_ref_att":
         raise SystemExit("--unfused goes with --config st_dram_ref_att")
     variants = GOLDEN_VARIANTS if args.golden else UNFUSED_VARIANTS \
         if args.unfused else ATT_VARIANTS \
         if args.config == "st_dram_ref_att" else VARIANTS
+    if args.variants:
+        names = args.variants.split(",")
+        unknown = set(names) - set(variants)
+        if unknown:
+            raise SystemExit(f"unknown variants {sorted(unknown)}")
+        variants = {k: variants[k] for k in names}
     print(card_line(), flush=True)
     failed = []
     with tempfile.TemporaryDirectory() as tmp:

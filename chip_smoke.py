@@ -50,7 +50,24 @@ traceback and a non-zero exit:
    train unfused / train unfused plain, the phases of 9 for the unfused
    flagship, which runs the raw conv (Conv3dFunction) and the
    first-maximum max-pool backward.
-11. conv sweep (after the kernel phases of 3, before 6): ptxas's report
+11. the inference engine (after 10's golden, before the sweeps):
+   engine, LesionSegTest on the flagship over a RadboudCOVID split of
+   three synthetic scans of that shape and a truncated fourth, written
+   with the port's MHA codec beside a checkpoint saved by the port from
+   the trained weights: every good scan archived at its shape with a
+   finite Dice, the truncated one logged and missing, the four forward
+   kernels launched (counts zeroed just before, read just after, path
+   engine), per-scan wall times of load, prep, pre / model / post and
+   archive; a restart over the same output archives and launches
+   nothing. engine deploy: the CLI (python3 -m
+   dram_tpu_torch.process_pipeline) in deployment mode on the scan of 4,
+   whose archived pred mask and heatmap must equal 4's heatmap run
+   bitwise (post: the same scan prepped without the vessel mask).
+   engine host-stitch: USE_FAST_INFERENCE = False on that scan (each
+   lobe alone, batch 1) with the kernels and with the plain versions:
+   Dice >= 0.995 and the same Otsu bin; every kernel launch of the first
+   lobe's forward against its plain version.
+12. conv sweep (after the kernel phases of 3, before 6): ptxas's report
    (registers, spills) and the dynamic shared memory of each Hopper conv
    kernel, and the check that their SASS holds HGMMA and no HMMA; then
    every conv launch of the flagship training step (14 forward, 13 dx,
@@ -60,13 +77,13 @@ traceback and a non-zero exit:
    largest, statistics within stats_tol, dW within 1e-3), launched twice
    with bitwise-equal results; at batch 10 its time, TFLOP/s and share of
    the bf16 bound beside cuDNN's time for the same conv.
-12. upsample sweep (after 11): every upsample launch, forward and adjoint,
+13. upsample sweep (after 12): every upsample launch, forward and adjoint,
    of the scan (batch 5), the flagship step (batch 10) and the training
    golden's step (batch 2 x 48^3), each against its plain version (2^-7
    of the largest) and launched twice with bitwise-equal results; at
    batch 5 and 10 its time, byte bound and share of it beside the
    library call (F.interpolate / aten.upsample_trilinear3d_backward).
-13. attention sweep (after 12): ptxas's report (registers, spills) of the
+14. attention sweep (after 13): ptxas's report (registers, spills) of the
    plane-ring attention kernels (forward and gradient pass), then every
    stencil-attention launch of the scan (forward, batch 5), the flagship
    step (forward, statistics and gradient passes, batch 10) and the
@@ -77,7 +94,7 @@ traceback and a non-zero exit:
    dynamic shared memory; at batch 2 also
    StencilAttentionFunction's gradients against autograd through the
    plain forward (1e-4).
-14. train golden (last): the flagship's kernel step, fused and unfused, at
+15. train golden (last): the flagship's kernel step, fused and unfused, at
    the published widths and bf16 activations on the training golden's
    batch (golden.train_golden_batch, 2 x 48^3, -300 HU), held against
    dram_tpu's float64 step (tools/make_port_train_golden.py): loss terms
@@ -92,13 +109,16 @@ Prints a `{"kernels": [...]}` JSON line and, last, the device line
 """
 
 import contextlib
+import csv
 import faulthandler
 import re
 import hashlib
 import json
+import logging
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -108,13 +128,17 @@ import torch.nn.functional as F
 from dram_tpu_torch import golden, weights
 from dram_tpu_torch.configs import (st_dram_ref, st_dram_ref_att,
                                     with_settings)
+from dram_tpu_torch.core.ops import binary_cam_np
+from dram_tpu_torch.data.io import read_mha, write_mha
 from dram_tpu_torch.data.synth import synth_scan, train_batch
+from dram_tpu_torch.infer.engine import LesionSegTest
 from dram_tpu_torch.infer.fast import FastScanPipeline, prep_scan_chunks
 from dram_tpu_torch.losses.refine import pseudo_labels
 from dram_tpu_torch.kernels import (_build, conv3d, conv_stack, pool,
                                     upsample, window_attention)
 from dram_tpu_torch.models import DC3D, DC3DATGeneric
 from dram_tpu_torch.train import train_steps
+from dram_tpu_torch.train.checkpoint import save_checkpoint
 from dram_tpu_torch.train.trainer import build_model
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -124,7 +148,8 @@ LIMITS = {"card": 30, "build": 180, "kernel": 60, "weights": 60,
           "pipeline_unfused": 120, "plain_unfused": 120, "golden": 60,
           "train_unfused": 300, "train_unfused_plain": 300,
           "conv_sweep": 240, "upsample_sweep": 120, "attention_sweep": 120,
-          "train_golden": 240}
+          "train_golden": 240, "engine": 300, "engine_deploy": 180,
+          "engine_stitch": 300}
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor-core
 # and f32 CUDA-core flop/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -387,9 +412,15 @@ def train_kernel_phases(gen):
         del y, yp
         ms = cuda_ms(lambda: conv_stack.conv3x3x3_train(
             x1, w, x2=x2, prologue=pro, stats=True))
+        # the conv's operations plus relu(x s + t) on each input element;
+        # no single PyTorch call computes the prologue and the conv
+        pro_bound, pro_by = bound(
+            nbytes(x1, x2) + V * 64 * 2 + w.numel() * 2,
+            flops + 3.0 * V * 192, BF16_FLOPS)
         print(f"# conv3x3x3_train prologue + statistics [128|64] -> 64: ms "
               f"{ms:.4f} (raw output + statistics "
-              f"{res['conv3x3x3_train']['ms']:.4f})", flush=True)
+              f"{res['conv3x3x3_train']['ms']:.4f}); bound_ms "
+              f"{pro_bound:.4f} ({pro_by}); library_ms none", flush=True)
 
     dy = rnd(10, 80, 80, 80, 64)
     dyl = dy.permute(0, 4, 1, 2, 3)
@@ -1136,6 +1167,8 @@ PATHS = {"pipeline": ("conv3x3x3", "maxpool2", "upsample2x",
          "train_att": TRAIN_KERNELS + ATTENTION_TRAIN,
          "pipeline_unfused": ("conv3d", "maxpool2", "upsample2x",
                               "stencil_attention"),
+         "engine": ("conv3x3x3", "maxpool2", "upsample2x",
+                    "stencil_attention"),
          "train_unfused": ("conv3d", "conv3d_dx", "conv3d_dw", "maxpool2",
                            "maxpool2_bwd_first", "upsample2x",
                            "upsample2x_bwd") + ATTENTION_TRAIN}
@@ -1560,6 +1593,293 @@ def train_golden_phase(bench, launches, configs):
         fail(f"train golden: the kernel step disagrees with dram_tpu's "
              f"float64 step ({', '.join(failed)})")
 
+# --- the inference engine (dram_tpu_torch.infer.engine.LesionSegTest) -------
+
+# the engine phase's RadboudCOVID split: three synthetic scans of
+# SCAN_SHAPE at SPACING (seeds SEED + 1..3) and a fourth whose image file
+# is cut in half
+ENGINE_GOOD = ("p000_s1", "p001_s1", "p002_s1")
+ENGINE_TRUNCATED = "p003_s1"
+LOBE_COLUMNS = ("lul [0-5]", "lll [0-5]", "rul [0-5]", "rll [0-5]",
+                "rml [0-5]")
+# the forward kernels of a lobe's batch-1 forward on the host-stitch
+# path, each against its plain version at the kernel phases' tolerances
+FORWARD_TOL = {"conv3x3x3": bf16_tol(2 ** -7), "maxpool2": lambda yp: 0.0,
+               "upsample2x": bf16_tol(2 ** -7),
+               "stencil_attention": lambda yp: 1e-4 * yp.abs().max().item()}
+
+
+def engine_settings(root, **values):
+    """The flagship's settings (configs/st_dram_ref_att) with the paths
+    under `root` and logging to stderr."""
+    return with_settings(st_dram_ref_att, DB_PATH=f"{root}/db",
+                         TEST_CSV=f"{root}/db/wss_all.csv",
+                         MODEL_ROOT_PATH=f"{root}/models/",
+                         DEBUG_PATH=f"{root}/debug/", LOGGING={}, **values)
+
+
+def write_engine_split(db):
+    """The RadboudCOVID layout of the engine phase under `db`."""
+    rows = []
+    for i, uid in enumerate(ENGINE_GOOD + (ENGINE_TRUNCATED,)):
+        scan, lobe, lesion, vessel, sev = synth_scan(
+            np.random.default_rng(SEED + 1 + i), SCAN_SHAPE)
+        for folder, arr in (("images", scan), ("lobes", lobe),
+                            ("lesion", lesion), ("pseudo_vessels", vessel)):
+            write_mha(f"{db}/wss/{folder}/{uid}.mha", arr, spacing=SPACING)
+        pid, sid = uid.split("_")
+        rows.append({"patientid": pid, "study": sid,
+                     **dict(zip(LOBE_COLUMNS, sev))})
+    path = f"{db}/wss/images/{ENGINE_TRUNCATED}.mha"
+    with open(path, "rb") as fp:
+        data = fp.read()
+    with open(path, "wb") as fp:
+        fp.write(data[:len(data) // 2])
+    with open(f"{db}/wss_all.csv", "wt", newline="") as fp:
+        w = csv.DictWriter(fp, fieldnames=["patientid", "study",
+                                           *LOBE_COLUMNS])
+        w.writeheader()
+        w.writerows(rows)
+
+
+@contextlib.contextmanager
+def error_log(settings):
+    """The engine's ERROR records while the block runs."""
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+    handler = Keep(logging.ERROR)
+    logger = logging.getLogger(settings.EXP_NAME)
+    logger.addHandler(handler)
+    try:
+        yield records
+    finally:
+        logger.removeHandler(handler)
+
+
+def print_scan_times(eng, label, card):
+    for t in eng.timings:
+        stages = " / ".join(f"{k} {t[k]:.1f}" for k in
+                            ("pre", "model", "post") if k in t)
+        print(f"# engine {label} scan {t['uid']}: load {t['load']:.1f} ms, "
+              f"prep {t['prep']:.1f} ms, {stages} ms, archive "
+              f"{t['archive']:.1f} ms (screenshots {t['screenshots']:.1f}), "
+              f"total {t['total']:.1f} ms ({card})", flush=True)
+
+
+def engine_phase(root, params, batch_stats, card):
+    """LesionSegTest on the flagship over the engine split, fast path:
+    every good scan archived at its shape with a finite Dice, the
+    truncated one logged and missing, rows 1-4 launched (counts zeroed
+    just before the run, read just after); then a restart over the same
+    output, which archives nothing and launches nothing. Returns the
+    engine path's launch counts and the checkpoint's path."""
+    write_engine_split(f"{root}/db")
+    settings = engine_settings(root)
+    ckpt = f"{root}/models/{settings.EXP_NAME}/1.ckpt"
+    save_checkpoint(ckpt, {"model": {"params": params,
+                                     "batch_stats": batch_stats},
+                           "epoch": 1, "iteration": 0})
+    out = f"{root}/engine"
+    eng = LesionSegTest(settings, output_path=out, device="cuda")
+    zero_counts()
+    with error_log(settings) as errors:
+        rows = eng.run()
+    torch.cuda.synchronize()
+    n = len(ENGINE_GOOD)
+    counts = path_counts("engine", {"conv3x3x3": 14 * n, "maxpool2": 3 * n,
+                                    "upsample2x": 3 * n,
+                                    "stencil_attention": n})
+    print(f"# engine launches over {n} scans: {counts}", flush=True)
+    print_scan_times(eng, "fast", card)
+    for row in rows:
+        print(f"# engine {row['uid']}: dice {row['dice']:.6f} dice_post "
+              f"{row['dice_post']:.6f} iou {row['iou']:.6f} acc "
+              f"{row['acc']:.3f}", flush=True)
+    if [r["uid"] for r in rows] != list(ENGINE_GOOD) or \
+            not all(np.isfinite(r[k]) for r in rows
+                    for k in ("dice", "dice_post", "iou", "iou_post")):
+        fail(f"engine: records {rows}")
+    task = f"{out}/test"
+    for uid in ENGINE_GOOD:
+        for sub in ("", "post/", "heatmap/"):
+            a = read_mha(f"{task}/{sub}{uid}.mha")["array"]
+            if a.shape != SCAN_SHAPE:
+                fail(f"engine: {sub}{uid}.mha has shape {a.shape}")
+    if os.path.exists(f"{task}/{ENGINE_TRUNCATED}.mha") or not any(
+            f"({ENGINE_TRUNCATED})" in e for e in errors):
+        fail(f"engine: the truncated scan {ENGINE_TRUNCATED} was not "
+             f"logged as failed ({errors})")
+    shots = [f for f in os.listdir(f"{task}/screenshots")
+             if f.endswith(".jpg")]
+    print(f"# engine: {len(rows)} scans archived; {ENGINE_TRUNCATED} "
+          f"failed alone ({errors[0].splitlines()[-1]}); screenshots of "
+          f"{len(shots)} scans (none without cv2)", flush=True)
+
+    again = LesionSegTest(engine_settings(root), output_path=out,
+                          device="cuda")
+    zero_counts()
+    again.run()
+    torch.cuda.synchronize()
+    stray = {k: getattr(*WRAPPERS[k]).launches for k in WRAPPERS
+             if getattr(*WRAPPERS[k]).launches}
+    if again.timings or again.test_set.uids != [ENGINE_TRUNCATED] or stray:
+        fail(f"engine restart: archived {len(again.timings)} scans, tried "
+             f"{again.test_set.uids}, launched {stray}")
+    print(f"# engine restart: 0 scans archived, {ENGINE_TRUNCATED} tried "
+          "again and failed again, no launch", flush=True)
+    return counts, ckpt
+
+
+def write_deploy_dirs(root, scan, lobe, uid="scan0"):
+    """The weights phase's scan and lobes as a deployment directory."""
+    write_mha(f"{root}/ct/{uid}.mha", scan, spacing=SPACING)
+    write_mha(f"{root}/lobes/{uid}.mha", lobe, spacing=SPACING)
+    return f"{root}/ct", f"{root}/lobes", uid
+
+
+def engine_deploy_phase(root, ckpt, deploy, pipe, heat_run, card):
+    """The CLI (python3 -m dram_tpu_torch.process_pipeline) in deployment
+    mode on the weights phase's scan: its archived pred mask and heatmap
+    equal, bitwise, the pipeline phase's heatmap run of the same scan
+    (`heat_run`), and its post mask that of the same scan prepped
+    without the vessel mask (TestDataset has none)."""
+    ct, lobes, uid = deploy
+    out = f"{root}/deploy"
+    env = dict(os.environ, DRAM_OUTPUT_ROOT=f"{root}/cli")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "dram_tpu_torch.process_pipeline",
+         "--input", ct, "--lobes", lobes, "--output", out,
+         "--ckp_path", ckpt, "--device", "cuda"], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=LIMITS["engine_deploy"] - 30)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"engine deploy: the CLI exited {r.returncode}: "
+             f"{r.stderr[-2000:]}")
+    print(f"# engine deploy: the CLI took {wall:.1f} s ({card})",
+          flush=True)
+    got = {k: read_mha(f"{out}/test/{sub}{uid}.mha")["array"]
+           for k, sub in (("pred", ""), ("post", "post/"),
+                          ("heatmap", "heatmap/"))}
+    with open(f"{out}/test/records.csv") as fp:
+        if fp.read().split() != ["uid", uid]:
+            fail("engine deploy: records.csv")
+    prep = prep_scan_chunks(read_mha(f"{ct}/{uid}.mha")["array"],
+                            read_mha(f"{lobes}/{uid}.mha")["array"],
+                            SPACING, windowing_span=WINDOW)
+    novessel = run_scan(pipe, prep, True, "kernels, no vessel mask")
+    checks = {"pred vs the pipeline phase": (got["pred"], heat_run["pred"]),
+              "heatmap vs the pipeline phase": (got["heatmap"],
+                                                heat_run["heatmap_u8"]),
+              "pred without vessels": (got["pred"], novessel["pred"]),
+              "heatmap without vessels": (got["heatmap"],
+                                          novessel["heatmap_u8"]),
+              "post without vessels": (got["post"], novessel["post"])}
+    for label, (a, b) in checks.items():
+        same = a.shape == b.shape and np.array_equal(a, b.astype(a.dtype))
+        print(f"# engine deploy: {label}: "
+              f"{'bitwise equal' if same else 'DIFFERENT'}", flush=True)
+        if not same:
+            fail(f"engine deploy: {label} differs")
+
+
+@contextlib.contextmanager
+def recorded_forward(names):
+    """Record the arguments of the kernel launches of `names` up to and
+    including the first stencil attention (one batch-1 forward of the
+    host-stitch path); the kernels run as usual. Yields the list of
+    (name, args, kwargs)."""
+    calls, saved = [], {k: getattr(*WRAPPERS[k]) for k in names}
+
+    def recorder(k):
+        def rec(*args, **kw):
+            if not any(c[0] == "stencil_attention" for c in calls):
+                calls.append((k, [a.clone() if torch.is_tensor(a) else a
+                                  for a in args],
+                              {n: v.clone() if torch.is_tensor(v) else v
+                               for n, v in kw.items()}))
+            return saved[k](*args, **kw)
+        rec.launches = 0  # the kernel's counter, looked up by its name
+        return rec
+    for k in names:
+        setattr(*WRAPPERS[k], recorder(k))
+    try:
+        yield calls
+    finally:
+        for k in names:
+            setattr(*WRAPPERS[k], saved[k])
+
+
+def engine_stitch_phase(root, ckpt, deploy, card):
+    """USE_FAST_INFERENCE = False on the deployment scan: the host-stitch
+    path runs each lobe alone, batch 1; its masks with the kernels and
+    with the plain versions agree (Dice >= 0.995, the same Otsu bin of
+    the stitched heatmap); each forward kernel launch of the first
+    lobe's forward is held against its plain version."""
+    ct, lobes, uid = deploy
+    names = PATHS["engine"]
+    runs = {}
+    for label in ("kernels", "plain versions"):
+        settings = engine_settings(root, USE_FAST_INFERENCE=False,
+                                   RELOAD_CHECKPOINT_PATH=ckpt)
+        eng = LesionSegTest(settings, scan_path=ct, lobe_path=lobes,
+                            output_path=f"{root}/stitch {label}",
+                            device="cuda")
+        stitched = {}
+        process_scan = eng.process_scan
+
+        def keep(scan_data, _f=process_scan, _out=stitched):
+            out = _f(scan_data)
+            lung = scan_data["#lobe_reference"] > 0
+            _out["threshold"] = binary_cam_np(out["heatmap"][lung])[1]
+            return out
+        eng.process_scan = keep
+        ctx = plain_versions() if label == "plain versions" \
+            else recorded_forward(names)
+        with ctx as calls:
+            rows = eng.run()
+        torch.cuda.synchronize()
+        if len(rows) != 1:
+            fail(f"engine host-stitch ({label}): {len(rows)} scans archived")
+        print_scan_times(eng, f"host-stitch {label}", card)
+        task = f"{root}/stitch {label}/test"
+        runs[label] = {k: read_mha(f"{task}/{sub}{uid}.mha")["array"]
+                       for k, sub in (("pred", ""), ("post", "post/"))}
+        runs[label]["threshold"] = stitched["threshold"]
+        if label == "kernels":
+            launches = {k: sum(c[0] == k for c in calls) for k in names}
+            print(f"# engine host-stitch: first lobe's batch-1 forward "
+                  f"launched {launches}", flush=True)
+            if min(launches.values()) == 0 or calls[0][1][0].shape[0] != 1:
+                fail(f"engine host-stitch: not one batch-1 forward on the "
+                     f"kernels ({launches})")
+            for k, args, kw in calls:
+                mod, attr = WRAPPERS[k]
+                with torch.no_grad():
+                    y = getattr(mod, attr)(*args, **kw)
+                    yp = getattr(mod, attr + "_plain")(*args, **kw)
+                err = (y.float() - yp.float()).abs().max().item()
+                allowed = FORWARD_TOL[k](yp.float())
+                if not err <= allowed:
+                    fail(f"engine host-stitch: {k} at {tuple(args[0].shape)}"
+                         f" disagrees with its plain version ({err:.3g} > "
+                         f"{allowed:.3g})")
+            print(f"# engine host-stitch: each of the {len(calls)} launches "
+                  "agrees with its plain version at batch 1", flush=True)
+    k, p = runs["kernels"], runs["plain versions"]
+    d_pred, d_post = dice(k["pred"], p["pred"]), dice(k["post"], p["post"])
+    bins = [round(r["threshold"] * 255) for r in (k, p)]
+    print(f"# engine host-stitch: kernels vs plain versions: dice pred "
+          f"{d_pred:.6f} post {d_post:.6f}, otsu bins {bins}, pred voxels "
+          f"{int(k['pred'].sum())}", flush=True)
+    if d_pred < 0.995 or d_post < 0.995 or bins[0] != bins[1] \
+            or not k["pred"].any():
+        fail("engine host-stitch: the kernel and plain runs disagree")
+
+
 
 def unfused_vs_fused(f, u):
     """Information, no gate: the unfused and the fused kernel runs of the
@@ -1586,7 +1906,8 @@ def main():
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=20)
-        print(smi.stdout.strip().splitlines()[0], flush=True)
+        card = smi.stdout.strip().splitlines()[0]
+        print(card, flush=True)
         print(f"# torch {torch.__version__} cuda {torch.version.cuda} "
               f"python {sys.version.split()[0]}", flush=True)
         # reference math in full f32: no TF32 in cuDNN convs or matmuls
@@ -1664,6 +1985,17 @@ def main():
                      {"fused kernels": warm, "unfused kernels": uwarm})
 
     del upipe
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_engine_") as root:
+        with phase("engine", LIMITS["engine"]):
+            launches["engine"], ckpt = engine_phase(root, params,
+                                                    batch_stats, card)
+        deploy = write_deploy_dirs(root, scan, lobe)
+        with phase("engine deploy", LIMITS["engine_deploy"]):
+            engine_deploy_phase(root, ckpt, deploy, pipe, b, card)
+        torch.cuda.empty_cache()
+        with phase("engine host-stitch", LIMITS["engine_stitch"]):
+            engine_stitch_phase(root, ckpt, deploy, card)
     del pipe, model, prepc
     torch.cuda.empty_cache()
     res.update(train_kernel_phases(gen))

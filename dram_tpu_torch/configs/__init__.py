@@ -17,6 +17,7 @@ _ALIASES = {
     "torch.optim.Adam": "dram_tpu_torch.train.trainer.adam",
     "torch.optim.lr_scheduler.ExponentialLR":
         "dram_tpu_torch.train.trainer.ExponentialLR",
+    "job_runner.LesionSegTest": "dram_tpu_torch.infer.engine.LesionSegTest",
 }
 
 

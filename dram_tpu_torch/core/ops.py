@@ -5,9 +5,10 @@ of the losses.
 Port of dram_tpu/core/ops.py (`windowing` :24, `otsu_threshold_u8` :89,
 `otsu_threshold_from_hist` :133, `otsu_threshold_u8_np` :153,
 `binary_cam_threshold` :174, `masked_mean` :213, `gsum` :219,
-`packbits_u8` :302, `unpackbits_u8_dev` :317, `unpackbits_np` :329). The
-TPU's one-hot-matmul histogram (`histogram256_mxu`) becomes
-torch.bincount.
+`packbits_u8` :302, `unpackbits_u8_dev` :317, `unpackbits_np` :329) and
+its host twins of the inference engine (`windowing_np` :39,
+`binary_cam_np` :160, `find_crops_np` :238). The TPU's one-hot-matmul
+histogram (`histogram256_mxu`) becomes torch.bincount.
 """
 
 from __future__ import annotations
@@ -27,6 +28,18 @@ def windowing(image, from_span=(-1150, 350), to_span=(0, 255)):
     lo, hi = from_span
     image = torch.clamp(image, lo, hi)
     return (image - lo) / (hi - lo) * (to_span[1] - to_span[0]) + to_span[0]
+
+
+def windowing_np(image, from_span=(-1150, 350), to_span=(0, 255)):
+    """NumPy twin of `windowing`; `from_span` None takes the image's own
+    min and max."""
+    if from_span is None:
+        lo, hi = np.min(image), np.max(image)
+    else:
+        lo, hi = from_span
+    image = np.clip(image, lo, hi)
+    return ((image - lo) / float(hi - lo)) * (to_span[1] - to_span[0]) \
+        + to_span[0]
 
 
 def otsu_threshold_u8(values, mask=None):
@@ -81,6 +94,42 @@ def otsu_threshold_u8_np(values_u8):
     """Host Otsu threshold of already-quantized u8 data."""
     v = np.asarray(values_u8).astype(np.uint8).ravel()
     return otsu_threshold_from_hist(np.bincount(v, minlength=256))
+
+
+def binary_cam_np(values, scaler=1.0, from_span=(0, 1)):
+    """Host CAM threshold (the reference's binary_cam): window to u8,
+    Otsu, scale by `scaler` and cap at 255; returns (mask, threshold in
+    [0, 1]). A single observed value is its own threshold."""
+    values = np.asarray(values)
+    if values.size == 0:
+        raise ValueError("empty array encountered! values.size == 0.")
+    w = windowing_np(values, from_span=from_span, to_span=(0, 255)) \
+        .astype(np.uint8)
+    uniq = np.unique(w)
+    if len(uniq) < 2:
+        return np.ones_like(w, bool), float(uniq[0]) / 255.0
+    th = min(otsu_threshold_u8_np(w) * scaler, 255.0)
+    return w >= th, th / 255.0
+
+
+def find_crops_np(mask, spacing, border):
+    """Bounding box of mask > 0 padded by ceil(border / spacing) voxels a
+    side (border in mm), clamped to the volume: a tuple of slices."""
+    mask = np.asarray(mask) > 0
+    if not mask.any():
+        raise ValueError("find_crops_np: empty mask")
+    slices = []
+    ndim = mask.ndim
+    for ax in range(ndim):
+        proj = mask.any(axis=tuple(i for i in range(ndim) if i != ax))
+        idx = np.where(proj)[0]
+        start, stop = int(idx[0]), int(idx[-1]) + 1
+        if border > 0:
+            pad = int(np.ceil(border / float(spacing[ax])))
+            start = max(0, start - pad)
+            stop = min(mask.shape[ax], stop + pad)
+        slices.append(slice(start, stop))
+    return tuple(slices)
 
 
 def binary_cam_threshold(values01, mask=None):

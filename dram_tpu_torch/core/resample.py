@@ -1,8 +1,9 @@
 """Separable 3-D resampling: align-corners trilinear resize on tensors and
 the ITK-semantics grid resample on host arrays.
 
-Port of dram_tpu/core/resample.py (`resize3d` :197, `itk_resample3d_np`
-:365, `_axis_weights` :73) for the modes the chunk-wire path uses: each
+Port of dram_tpu/core/resample.py (`resize3d` :197, `resize3d_np` :349,
+`itk_resample3d_np` :365, `_axis_weights` :73) for the modes the
+inference paths use: each
 axis is resized by a dense (out, in) weight matrix with <= 2 non-zeros
 per row, built in float64 and stored as float32 exactly as the JAX
 package builds it.
@@ -21,7 +22,8 @@ def _axis_weights(in_size: int, out_size: int, mode: str,
                   scale: float | None):
     """(out, in) float32 weight matrix + (out,) validity vector.
 
-    Modes: 'linear_ac' (torch align_corners=True), 'itk_linear' and
+    Modes: 'linear_ac' (torch align_corners=True), 'nearest_torch' (torch
+    F.interpolate nearest), 'itk_linear' and
     'itk_nearest' (SimpleITK: src = i * scale, points outside
     [-0.5, in - 0.5) take the fill value). `scale` is new/old spacing for
     the itk modes (None means in/out)."""
@@ -32,6 +34,12 @@ def _axis_weights(in_size: int, out_size: int, mode: str,
             src = np.zeros((1,))
         else:
             src = np.arange(out_size) * (in_size - 1) / (out_size - 1)
+    elif mode == "nearest_torch":
+        idx = np.floor(np.arange(out_size) * in_size / out_size) \
+            .astype(np.int64)
+        idx = np.clip(idx, 0, in_size - 1)
+        W[np.arange(out_size), idx] = 1.0
+        return W, valid
     elif mode in ("itk_linear", "itk_nearest"):
         s = (in_size / out_size) if scale is None else scale
         src = np.arange(out_size) * s
@@ -76,6 +84,19 @@ def resize3d(x, out_size):
         Wt = torch.from_numpy(W).to(y.device)
         y = torch.movedim(torch.movedim(y, ax, -1) @ Wt.T, -1, ax)
     return y.to(dtype)
+
+
+def resize3d_np(x, out_size, method="trilinear"):
+    """Host twin of resize3d ('trilinear': align-corners; 'nearest':
+    torch's nearest) of a (D, H, W) or (D, H, W, C) array, in f32."""
+    mode = {"trilinear": "linear_ac", "nearest": "nearest_torch"}[method]
+    y = np.asarray(x, np.float32)
+    for ax, o in zip(_spatial_axes(y.ndim), out_size):
+        if y.shape[ax] == int(o):
+            continue
+        W, _ = _axis_weights(y.shape[ax], int(o), mode, None)
+        y = np.moveaxis(np.moveaxis(y, ax, -1) @ W.T, -1, ax)
+    return y
 
 
 def itk_resample3d_np(x, out_size, scales, method="linear", fill_value=0.0):

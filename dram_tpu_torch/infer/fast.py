@@ -382,7 +382,8 @@ class FastScanPipeline:
         """Masks of one prepped scan on the scan grid.
 
         Returns a dict with pred / post (u8, scan shape), threshold,
-        ratios, and with `want_heatmap` the u8 heatmap; `stage_ms` holds
+        ratios, present (the prep's per-lobe flags), and with
+        `want_heatmap` the u8 heatmap; `stage_ms` holds
         the wall time of pre / model / post (each ended by a device
         synchronize)."""
         dev = self.device
@@ -400,7 +401,8 @@ class FastScanPipeline:
         sync()
         t2 = time.perf_counter()
         htp, th, pred = self.stage2post(out_l, ratio, lmask, prepc)
-        res = {"threshold": float(th), "ratios": ratio.cpu().numpy()}
+        res = {"threshold": float(th), "ratios": ratio.cpu().numpy(),
+               "present": prepc["present"]}
         if want_heatmap:
             # archive path: post rule, nearest back-gather and heatmap on
             # the device

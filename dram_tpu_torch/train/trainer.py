@@ -12,8 +12,9 @@ forward). `train_steps` builds model, initializer or weights, optimizer
 and loss from a settings module (dram_tpu_torch/configs) and runs a few
 steps.
 
-Not ported yet (ROADMAP Queue 1): the data layer, validation,
-checkpoints, the epoch loop and the multi-device mesh.
+Not ported yet (ROADMAP Queue 1): the data layer, validation, the epoch
+loop (which saves the checkpoints that train/checkpoint.py writes and
+train/runner.py reloads) and the multi-device mesh.
 """
 
 from __future__ import annotations

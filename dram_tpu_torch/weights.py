@@ -5,9 +5,13 @@ mapping from the flax parameter tree to the port's state_dict.
 {"params": ..., "batch_stats": ...} (written by tools/export_bench_weights.py,
 read in the JAX package by bench.py:68-98 through
 flax.serialization.msgpack_restore). Its arrays are flax ext type 1: the
-msgpack of (shape, dtype name, raw bytes). The reader below covers the
-msgpack subset such a file uses (maps, arrays, str, bin, ints, floats and
-ext type 1), so the port needs neither msgpack nor flax.
+msgpack of (shape, dtype name, raw bytes); numpy scalars are ext type 3,
+the same payload. The reader below covers the msgpack subset such a file
+and dram_tpu's checkpoints use (maps, arrays, str, bin, nil, booleans,
+ints, floats and ext types 1 and 3), so the port needs neither msgpack
+nor flax; `msgpack_packb` is its inverse, byte for byte what
+flax.serialization.msgpack_serialize writes for a tree of dicts, lists,
+Python scalars and arrays under 1 GiB.
 
 `from_jax` is the inverse of dram_tpu/train/torch_import.py:13-33, with the
 key mapping of tests/test_reference_parity.py:186-232: conv kernels
@@ -31,14 +35,16 @@ import torch
 DEFAULT_PATH = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "assets", "bench_weights.ckpt.xz")
 
-_EXT_NDARRAY = 1  # flax serialization's ndarray ext code
+# flax serialization's ext codes: ndarray, numpy scalar
+_EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
 
 
 def _ext(code, data):
-    if code != _EXT_NDARRAY:
+    if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
         raise ValueError(f"msgpack ext type {code} is not a flax ndarray")
     shape, dtype, raw = msgpack_unpackb(data)
-    return np.frombuffer(raw, dtype=np.dtype(dtype)).reshape(shape).copy()
+    a = np.frombuffer(raw, dtype=np.dtype(dtype)).reshape(shape).copy()
+    return a[()] if code == _EXT_NPSCALAR else a
 
 
 # fixed-width formats: byte -> (struct format, kind)
@@ -52,6 +58,7 @@ _FIXED = {0xca: (">f", "v"), 0xcb: (">d", "v"),
           0xde: (">H", "map"), 0xdf: (">I", "map"),
           0xc7: (">B", "ext"), 0xc8: (">H", "ext"), 0xc9: (">I", "ext")}
 _FIXEXT = {0xd4: 1, 0xd5: 2, 0xd6: 4, 0xd7: 8, 0xd8: 16}
+_CONST = {0xc0: None, 0xc2: False, 0xc3: True}
 
 
 def _read(buf, pos):
@@ -61,6 +68,8 @@ def _read(buf, pos):
         return b, pos
     if b >= 0xe0:
         return b - 0x100, pos
+    if b in _CONST:
+        return _CONST[b], pos
     if 0x80 <= b <= 0x8f:
         return _items(buf, pos, b & 0x0f, "map")
     if 0x90 <= b <= 0x9f:
@@ -106,6 +115,88 @@ def msgpack_unpackb(data):
     if pos != len(buf):
         raise ValueError(f"msgpack: {len(buf) - pos} trailing bytes")
     return obj
+
+
+def _sized(n, small, formats):
+    """The header of a length-`n` item: `small` | n when it fits under
+    16 (fixmap, fixarray) or 32 (fixstr), else the first (byte, struct
+    format) of `formats` wide enough."""
+    if small is not None and n < (32 if small == 0xa0 else 16):
+        return bytes([small | n])
+    for byte, fmt in formats:
+        if n < 1 << (8 * struct.calcsize(fmt)):
+            return bytes([byte]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack: length {n} too large")
+
+
+def _int(v):
+    if 0 <= v < 0x80:
+        return bytes([v])
+    if -32 <= v < 0:
+        return struct.pack(">b", v)
+    if v >= 0:
+        for byte, fmt in ((0xcc, ">B"), (0xcd, ">H"), (0xce, ">I"),
+                          (0xcf, ">Q")):
+            if v < 1 << (8 * struct.calcsize(fmt)):
+                return bytes([byte]) + struct.pack(fmt, v)
+    for byte, fmt in ((0xd0, ">b"), (0xd1, ">h"), (0xd2, ">i"),
+                      (0xd3, ">q")):
+        if v >= -(1 << (8 * struct.calcsize(fmt) - 1)):
+            return bytes([byte]) + struct.pack(fmt, v)
+    raise ValueError(f"msgpack: integer {v} out of range")
+
+
+def _pack_ext(code, payload):
+    n = len(payload)
+    fixed = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+    head = bytes([fixed[n]]) if n in fixed else \
+        _sized(n, None, ((0xc7, ">B"), (0xc8, ">H"), (0xc9, ">I")))
+    return head + struct.pack(">b", code) + payload
+
+
+def _pack(obj, out):
+    if obj is None or isinstance(obj, bool):
+        out.append(bytes([{None: 0xc0, False: 0xc2, True: 0xc3}[obj]]))
+    elif isinstance(obj, int):
+        out.append(_int(obj))
+    elif isinstance(obj, float):
+        out.append(b"\xcb" + struct.pack(">d", obj))
+    elif isinstance(obj, str):
+        raw = obj.encode()
+        out.append(_sized(len(raw), 0xa0, ((0xd9, ">B"), (0xda, ">H"),
+                                            (0xdb, ">I"))) + raw)
+    elif isinstance(obj, (bytes, bytearray)):
+        out.append(_sized(len(obj), None, ((0xc4, ">B"), (0xc5, ">H"),
+                                            (0xc6, ">I"))) + bytes(obj))
+    elif isinstance(obj, dict):
+        out.append(_sized(len(obj), 0x80, ((0xde, ">H"), (0xdf, ">I"))))
+        for k, v in sorted(obj.items()):
+            _pack(k, out)
+            _pack(v, out)
+    elif isinstance(obj, (list, tuple)):
+        out.append(_sized(len(obj), 0x90, ((0xdc, ">H"), (0xdd, ">I"))))
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, (np.ndarray, np.generic)):
+        scalar = isinstance(obj, np.generic)
+        a = np.asarray(obj)
+        if a.dtype.hasobject or a.dtype.isalignedstruct:
+            raise ValueError(f"msgpack: arrays of {a.dtype} not supported")
+        payload = msgpack_packb((a.shape, a.dtype.name, a.tobytes("C")))
+        out.append(_pack_ext(_EXT_NPSCALAR if scalar else _EXT_NDARRAY,
+                             payload))
+    else:
+        raise TypeError(f"msgpack: cannot pack {type(obj).__name__}")
+
+
+def msgpack_packb(obj):
+    """Encode one object: dicts (in sorted key order, as flax's tree
+    flattening leaves them), lists and tuples, None, booleans, ints,
+    floats, str, bytes, and numpy arrays and scalars as flax's ndarray /
+    scalar ext types (the inverse of msgpack_unpackb)."""
+    out = []
+    _pack(obj, out)
+    return b"".join(out)
 
 
 def load_bench_weights(path=DEFAULT_PATH):

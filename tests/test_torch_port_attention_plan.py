@@ -1,7 +1,8 @@
 """The tile plans of csrc/stencil_attention.cu's forward and gradient pass
 (kernels/window_attention.py:fwd_plan, bwd_plan), emulated on the CPU at
-every attention launch of the flagship (64^3, batch 5 for a scan, 10 for
-a training step, 2 for the training golden) and on odd grids: a copy of
+every attention launch of the flagship (64^3, batch 5 for a scan, 1 for a
+lobe of the inference engine's host-stitch path, 10 for a training step,
+2 for the training golden) and on odd grids: a copy of
 the kernels' in-tile arithmetic (the staged spans clipped at the volume,
 the bulk copies of each plane and the bytes announced on its mbarrier,
 the producer's plane ring and the compute warps' releases, validity and
@@ -305,7 +306,7 @@ def _emulated_64(args, bwd):
     return got, tuple(w[0] for w in want)
 
 
-@pytest.mark.parametrize("B", [5, 10, 2])
+@pytest.mark.parametrize("B", [5, 10, 2, 1])
 def test_fwd_plan_emulated_64(B):
     plan = wa.fwd_plan(B, 64, 64, 64)
     assert plan["threads"] <= wa.FWD_THREADS

@@ -1,5 +1,7 @@
 """Guards of the port's boundaries: dram_tpu_torch and chip_smoke.py import
-without jax, flax, msgpack, ml_dtypes, scipy or dram_tpu; the CUDA sources
+without jax, flax, msgpack, ml_dtypes, scipy, pandas, matplotlib, cv2 or
+dram_tpu; no module of the port names a file under dram_tpu/; the CUDA
+sources
 include no PyTorch, pybind11 or CUTLASS header; a CUDA request without a
 GPU raises; chip_smoke.py fails without a GPU and outside the repo."""
 
@@ -18,7 +20,7 @@ CSRC = os.path.join(REPO, "dram_tpu_torch", "kernels", "csrc")
 BLOCKER = """
 import sys
 BLOCKED = {"jax", "jaxlib", "flax", "msgpack", "ml_dtypes", "scipy",
-           "dram_tpu"}
+           "pandas", "matplotlib", "cv2", "dram_tpu"}
 class _Blocker:
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:
@@ -43,11 +45,30 @@ for n in names + ["dram_tpu_torch.train", "dram_tpu_torch.losses",
     importlib.import_module(n)
 assert {"dram_tpu_torch.train.trainer", "dram_tpu_torch.losses.refine",
         "dram_tpu_torch.configs.st_dram_ref",
-        "dram_tpu_torch.configs.st_dram_ref_att"} <= set(names)
+        "dram_tpu_torch.configs.st_dram_ref_att",
+        "dram_tpu_torch.infer.engine", "dram_tpu_torch.data.io",
+        "dram_tpu_torch.data.datasets", "dram_tpu_torch.data.transforms",
+        "dram_tpu_torch.train.checkpoint", "dram_tpu_torch.train.runner",
+        "dram_tpu_torch.viz", "dram_tpu_torch.process_pipeline"} \
+    <= set(names)
 print(len(names))
 """)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 15
+    assert int(r.stdout.split()[-1]) >= 41
+
+
+def test_no_module_names_a_dram_tpu_file():
+    """The port neither imports nor exec-loads a file of the JAX
+    package: no source of dram_tpu_torch names a path under dram_tpu/."""
+    root = os.path.join(REPO, "dram_tpu_torch")
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(dirpath, f)) as fp:
+                    code = fp.read()
+                assert not re.search(r"[\"'](\.\./)*dram_tpu[/\"']|"
+                                     r"join\([^)]*[\"']dram_tpu[\"']",
+                                     code), f
 
 
 def test_chip_smoke_imports_without_jax_or_dram_tpu():

@@ -1,7 +1,8 @@
 """The tile plans of csrc/upsample2x.cu (kernels/upsample.py:fwd_plan,
 bwd_plan), emulated on the CPU at every upsample launch shape of the
-flagship's scan (batch 5), its training step (batch 10) and the training
-golden's step (batch 2 x 48^3): a copy of the kernels' in-tile arithmetic
+flagship's scan (batch 5; batch 1 for the forwards of the inference
+engine's host-stitch path, one lobe at a time), its training step
+(batch 10) and the training golden's step (batch 2 x 48^3): a copy of the kernels' in-tile arithmetic
 (staged row, column and plane spans, the plane ring and its loads ahead,
 the forward's three-column register window, the adjoint's four-tap
 windows along x and y and its two plane accumulators) run tile by tile,
@@ -22,6 +23,7 @@ from dram_tpu_torch.kernels import upsample as up
 LAUNCHES = [(B, n, C) for B in (5, 10) for n, C in ((10, 512), (20, 256),
                                                      (40, 128))] \
     + [(2, 6, 512), (2, 12, 256), (2, 24, 128)]
+FWD_LAUNCHES = LAUNCHES + [(1, 10, 512), (1, 20, 256), (1, 40, 128)]
 CH = 8
 
 
@@ -162,7 +164,7 @@ def emulate_bwd(dy, plan):
     return out
 
 
-@pytest.mark.parametrize("B,n,C", LAUNCHES)
+@pytest.mark.parametrize("B,n,C", FWD_LAUNCHES)
 def test_fwd_plan_emulated(B, n, C):
     plan = up.fwd_plan(B, n, n, n, C)
     assert plan["threads"] <= up.FWD_THREADS

@@ -7,7 +7,8 @@ Phases, each under a faulthandler watchdog that ends a hung run with a
 traceback and a non-zero exit:
 
 1. card: the card's name and power limit (nvidia-smi); fails without CUDA.
-2. build: nvcc builds the CUDA kernels from dram_tpu_torch/kernels/csrc.
+2. build: nvcc builds the CUDA kernels from dram_tpu_torch/kernels/csrc
+   while g++ builds the C++ host prep of dram_tpu_torch/native.
 3. one phase per kernel (and per training mode of the conv kernel), at
    its path's largest shape: the kernel against its plain PyTorch version
    on the same inputs (error against the stated tolerance), then
@@ -67,6 +68,23 @@ traceback and a non-zero exit:
    lobe alone, batch 1) with the kernels and with the plain versions:
    Dice >= 0.995 and the same Otsu bin; every kernel launch of the first
    lobe's forward against its plain version.
+11b. the C++ host prep and the scan wires (after 10's golden, before
+   11): host prep prints the g++ build of phase 2 (its version, the
+   host CPU's model and which AVX-512 paths were compiled in), times the C++ and NumPy preps on the scan of 4 and on a
+   BENCH_SHAPE scan (the bench's 512 x 512 x 400 class), holds the C++
+   chunk wire against the NumPy one on both (the same geometry, chunks
+   by 8^3 block means, candidate and lobe bits at Dice >= 0.999) and
+   prints the digest of a seeded small scan's C++ prep beside the one
+   recorded in DIGEST_SHA256 (not a gate); pipeline p12, pipeline w8 and
+   pipeline device-resample run process_prepped on both scan wires and
+   process on the raw scan with the kernels, launch counts zeroed before
+   and read after each: p12 against the chunk wire of the same C++ prep
+   at Dice >= 0.995 and the same Otsu bin, w8 and the device resample
+   against p12 at pred Dice > 0.98 and ratios within 5e-3; engine w8
+   (after 11's engine) runs LesionSegTest with FAST_WIRE = "w8" over the
+   engine split, pred masks against the wc run's at Dice > 0.98. The
+   golden and the earlier pipeline phases run on the NumPy prep; the
+   engine, the CLI and engine deploy's reference run on the C++ prep.
 12. conv sweep (after the kernel phases of 3, before 6): ptxas's report
    (registers, spills) and the dynamic shared memory of each Hopper conv
    kernel, and the check that their SASS holds HGMMA and no HMMA; then
@@ -108,6 +126,7 @@ Prints a `{"kernels": [...]}` JSON line and, last, the device line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before it.
 """
 
+import concurrent.futures
 import contextlib
 import csv
 import faulthandler
@@ -125,10 +144,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dram_tpu_torch import golden, weights
+from dram_tpu_torch import golden, native, weights
 from dram_tpu_torch.configs import (st_dram_ref, st_dram_ref_att,
                                     with_settings)
 from dram_tpu_torch.core.ops import binary_cam_np
+from dram_tpu_torch.data.hostprep import prep_scan
 from dram_tpu_torch.data.io import read_mha, write_mha
 from dram_tpu_torch.data.synth import synth_scan, train_batch
 from dram_tpu_torch.infer.engine import LesionSegTest
@@ -149,7 +169,8 @@ LIMITS = {"card": 30, "build": 180, "kernel": 60, "weights": 60,
           "train_unfused": 300, "train_unfused_plain": 300,
           "conv_sweep": 240, "upsample_sweep": 120, "attention_sweep": 120,
           "train_golden": 240, "engine": 300, "engine_deploy": 180,
-          "engine_stitch": 300}
+          "engine_stitch": 300, "host_prep": 300, "pipeline_wire": 120,
+          "engine_w8": 300}
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor-core
 # and f32 CUDA-core flop/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -159,6 +180,15 @@ WINDOW = (-1000, -700)
 # dram_tpu's masks of that scan (tools/make_port_golden.py)
 GOLDEN = "dram_tpu_torch/golden/flagship_scan.npz"
 TRAIN_STEPS = 3
+# the bench's 400-slice scan geometry (bench.py MIXED_GEOMS)
+BENCH_SHAPE, BENCH_SPACING = (400, 512, 512), (0.8, 0.7, 0.7)
+# the C++ prep's digest (hostprep_digest) of a seeded 48 x 64 x 64 scan
+# on an Intel Xeon host with g++ 12.2.0, every AVX-512 path of
+# hostprep.cpp compiled in; printed beside this host's (a finding, not a
+# gate)
+DIGEST_SHAPE = (48, 64, 64)
+DIGEST_SHA256 = ("307a62d8f0f3a848474b84e12154d8f85e0ab84b3d1fc8eeb35ca33a"
+                 "219d1614")
 # kernel run vs plain run of the training step on the card: step-1 loss
 # terms (relative), every parameter gradient's cosine and relative L2, and
 # the relative L2 of the BatchNorm batch statistics that step 1 folds into
@@ -1176,6 +1206,12 @@ PATHS = {"pipeline": ("conv3x3x3", "maxpool2", "upsample2x",
 # the fused and the unfused stack
 PATHS["train_golden"] = PATHS["train_att"]
 PATHS["train_golden_unfused"] = PATHS["train_unfused"]
+# the scan wires (process_prepped on p12 and w8, process from the raw
+# scan) and the engine on the w8 wire run the chunk wire's forward
+for _p in ("pipeline_p12", "pipeline_w8", "pipeline_device", "engine_w8"):
+    PATHS[_p] = PATHS["pipeline"]
+FORWARD_LAUNCHES = {"conv3x3x3": 14, "maxpool2": 3, "upsample2x": 3,
+                    "stencil_attention": 1}
 
 
 @contextlib.contextmanager
@@ -1199,7 +1235,13 @@ def dice(a, b):
 
 
 def run_scan(pipe, prepc, want_heatmap, label):
-    out = pipe.process_chunks(prepc, want_heatmap=want_heatmap)
+    return report_scan(pipe.process_chunks(prepc, want_heatmap=want_heatmap),
+                       label)
+
+
+def report_scan(out, label):
+    """Print a scan's stage times and mask sizes; fail unless its masks
+    have the scan's shape and its ratios and threshold are finite."""
     ms = out["stage_ms"]
     print(f"# scan {label}: pre {ms['pre']:.1f} ms model {ms['model']:.1f} "
           f"ms post {ms['post']:.1f} ms; threshold {out['threshold']:.6f} "
@@ -1485,6 +1527,198 @@ def golden_phase(draw, prepc, runs):
         compare_masks(out, ref, f"{label} vs dram_tpu's golden")
 
 
+def compare_lossy(a, b, label):
+    """The w8 wire's gate (tests/test_fast_infer.py): pred Dice > 0.98
+    and every ratio within 5e-3; prints the post mask's Dice beside it."""
+    d_pred, d_post = dice(a["pred"], b["pred"]), dice(a["post"], b["post"])
+    d_ratio = np.abs(np.asarray(a["ratios"]) - np.asarray(b["ratios"])).max()
+    print(f"# {label}: dice pred {d_pred:.6f} post {d_post:.6f}, otsu "
+          f"{a['threshold']:.6f} vs {b['threshold']:.6f}, ratios max diff "
+          f"{d_ratio:.3g}", flush=True)
+    if not (d_pred > 0.98 and d_ratio <= 5e-3):
+        fail(f"{label}: beyond the w8 wire's gate")
+
+
+def host_cpu():
+    """This host's CPU: lscpu's model name, vendor, family and model (the
+    name reads "unknown" on hosts that mask it)."""
+    out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                         timeout=20).stdout.splitlines()
+    fields = dict(ln.strip().split(":", 1) for ln in out if ":" in ln)
+    fields = {k.strip(): v.strip() for k, v in fields.items()}
+    return (f"{fields.get('Model name', 'unknown CPU')} "
+            f"({fields.get('Vendor ID', '?')} family "
+            f"{fields.get('CPU family', '?')} model "
+            f"{fields.get('Model', '?')})")
+
+
+def timed(fn, reps):
+    """(fn()'s last result, median wall ms over `reps` calls)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, float(np.median(times))
+
+
+def bits_dice(a, b, n):
+    return dice(np.unpackbits(a)[:n], np.unpackbits(b)[:n])
+
+
+def compare_preps(nat, ref, label):
+    """The C++ chunk prep against the NumPy one of the same scan: the same
+    geometry, the chunks within BLOCK_MEAN_ATOL in every 8^3 block mean,
+    candidate and lobe bits at Dice >= 0.999 (the two resamples round
+    some voxels to another HU)."""
+    for k in ("iso_shape", "bucket", "crop_lo", "starts", "present"):
+        if not np.array_equal(nat[k], ref[k]):
+            fail(f"host prep {label}: {k} {nat[k]} vs {ref[k]}")
+    dmean = np.abs(block_means(nat["x80_bits"])
+                   - block_means(ref["x80_bits"])).max()
+    n_iso = int(np.prod(nat["iso_shape"]))
+    n_lobe = len(nat["present"]) * int(np.prod(nat["bucket"]))
+    d_cand = bits_dice(nat["cand_bits"], ref["cand_bits"], n_iso)
+    d_lobe = bits_dice(nat["lobe_bits"], ref["lobe_bits"], n_lobe)
+    same = int((nat["x80_bits"] == ref["x80_bits"]).sum())
+    print(f"# host prep {label}: native vs NumPy chunks: 8^3 block means "
+          f"within {dmean:.3g} (allowed {BLOCK_MEAN_ATOL:.3g}), "
+          f"{same} of {nat['x80_bits'].size} chunk values bit-identical; "
+          f"candidate bits dice {d_cand:.6f}, lobe bits dice {d_lobe:.6f}; "
+          f"intensity threshold {nat['intensity_threshold']:.6f} vs "
+          f"{ref['intensity_threshold']:.6f}", flush=True)
+    if not (dmean <= BLOCK_MEAN_ATOL and d_cand >= 0.999
+            and d_lobe >= 0.999):
+        fail(f"host prep {label}: the native and NumPy preps disagree")
+
+
+def hostprep_digest():
+    """SHA-256 of the C++ prep of a seeded DIGEST_SHAPE scan: chunk,
+    lobe and candidate bits of the chunk wire and the p12 and w8 scan
+    wires."""
+    scan, lobe, _, vessel, _ = synth_scan(np.random.default_rng(SEED),
+                                          DIGEST_SHAPE,
+                                          lesion_severity=SEVERITIES)
+    c = prep_scan_chunks(scan, lobe, SPACING, vessel_u8=vessel,
+                         windowing_span=WINDOW)
+    p = prep_scan(scan, lobe, SPACING, vessel_u8=vessel)
+    w = prep_scan(scan, lobe, SPACING, vessel_u8=vessel,
+                  windowing_span=WINDOW)
+    return sha256(c["x80_bits"], c["lobe_bits"], c["cand_bits"],
+                  p["packed_scan"], p["packed_lobe"], w["packed_scan"])
+
+
+def load_host_prep():
+    """Build (if need be) and load the C++ host prep: (built now, s)."""
+    t0 = time.perf_counter()
+    cold = not os.path.exists(native.library_path())
+    native.load()
+    return cold, time.perf_counter() - t0
+
+
+def host_prep_phase(draw, prepc_np, np_ms, host_build):
+    """Report the C++ host prep's build (`host_build`, load_host_prep's
+    result); time it against the NumPy prep on the
+    pipeline scan and on a BENCH_SHAPE scan; hold its chunk wire against
+    the NumPy one's on both (compare_preps); print its digest beside
+    DIGEST_SHA256. Returns the C++ preps of the pipeline scan: (chunk
+    wire, p12, w8)."""
+    cold, build_s = host_build
+    version, simd = native.build_report()
+    cpu = host_cpu()
+    print(f"# host prep build: {os.path.basename(native.library_path())} "
+          f"({'built' if cold else 'found built'}, {build_s:.1f} s); "
+          f"{version}; {cpu}, {os.cpu_count()} cores; AVX-512 paths "
+          "compiled in: " + ", ".join(
+              f"{k.strip('_')} {'yes' if v else 'no'}"
+              for k, v in simd.items()), flush=True)
+    scan, lobe, vessel = draw
+    kw = dict(vessel_u8=vessel)
+    prepc, ms_c = timed(lambda: prep_scan_chunks(
+        scan, lobe, SPACING, windowing_span=WINDOW, **kw), 3)
+    p12, ms_p = timed(lambda: prep_scan(scan, lobe, SPACING, **kw), 3)
+    w8, ms_w = timed(lambda: prep_scan(scan, lobe, SPACING,
+                                       windowing_span=WINDOW, **kw), 3)
+    _, ms_pn = timed(lambda: prep_scan(scan, lobe, SPACING, prep="numpy",
+                                       **kw), 1)
+    print(f"# host prep {SCAN_SHAPE} at {SPACING} mm: chunk wire native "
+          f"{ms_c:.1f} ms (median of 3) vs NumPy {np_ms:.1f} ms; p12 native "
+          f"{ms_p:.1f} ms vs NumPy {ms_pn:.1f} ms; w8 native {ms_w:.1f} ms "
+          f"({cpu})", flush=True)
+    compare_preps(prepc, prepc_np, str(SCAN_SHAPE))
+
+    big = synth_scan(np.random.default_rng(SEED), BENCH_SHAPE,
+                     lesion_severity=SEVERITIES)
+    args = (big[0], big[1], BENCH_SPACING)
+    kw = dict(vessel_u8=big[3], windowing_span=WINDOW)
+    big_nat, ms_bn = timed(lambda: prep_scan_chunks(*args, **kw), 3)
+    big_np, ms_bp = timed(lambda: prep_scan_chunks(*args, **kw,
+                                                   prep="numpy"), 1)
+    _, ms_bw = timed(lambda: prep_scan(*args, **kw), 3)
+    print(f"# host prep {BENCH_SHAPE} at {BENCH_SPACING} mm -> iso crop "
+          f"{big_nat['iso_shape']}: chunk wire native {ms_bn:.1f} ms "
+          f"(median of 3) vs NumPy {ms_bp:.1f} ms; w8 native {ms_bw:.1f} "
+          f"ms ({cpu})", flush=True)
+    compare_preps(big_nat, big_np, str(BENCH_SHAPE))
+    del big, big_nat, big_np
+
+    digest = hostprep_digest()
+    same = "equal" if digest == DIGEST_SHA256 else "DIFFERENT"
+    print(f"# host prep digest of a seeded {DIGEST_SHAPE} scan: this host "
+          f"{digest}, recorded {DIGEST_SHA256}: {same} (information, not a "
+          "gate)", flush=True)
+    return prepc, p12, w8
+
+
+def wire_phases(pipe, draw, preps, launches):
+    """The scan wires on the pipeline scan with the kernels, counts zeroed
+    before each and read after: pipeline p12 (process_prepped on the
+    12-bit wire) against the chunk wire of the same C++ resample (the
+    lossless pair: Dice >= 0.995, the same Otsu bin); pipeline w8 against
+    p12 (compare_lossy); pipeline device-resample (process from the raw
+    scan, iso resample on the card) against p12 (compare_lossy, the gate
+    of tests/test_fast_infer.py for process against process_prepped).
+    Returns the chunk wire's heatmap run of the C++ prep."""
+    scan, lobe, vessel = draw
+    prepc, p12, w8 = preps
+    runs = {}
+    with phase("pipeline p12", LIMITS["pipeline_wire"]):
+        wc = run_scan(pipe, prepc, False, "kernels, native prep")
+        wc_heat = run_scan(pipe, prepc, True, "kernels, native prep, heatmap")
+        zero_counts()
+        report_scan(pipe.process_prepped(p12), "p12, cold")
+        runs["p12"] = report_scan(pipe.process_prepped(p12), "p12, warm")
+        launches["pipeline_p12"] = path_counts("pipeline_p12", {
+            k: 2 * n for k, n in FORWARD_LAUNCHES.items()})
+        print(f"# launches over the two p12 scans: "
+              f"{launches['pipeline_p12']}", flush=True)
+        compare_masks(runs["p12"], wc, "p12 vs wc (lossless wires)")
+    with phase("pipeline w8", LIMITS["pipeline_wire"]):
+        zero_counts()
+        report_scan(pipe.process_prepped(w8), "w8, cold")
+        runs["w8"] = report_scan(pipe.process_prepped(w8), "w8, warm")
+        launches["pipeline_w8"] = path_counts("pipeline_w8", {
+            k: 2 * n for k, n in FORWARD_LAUNCHES.items()})
+        print(f"# launches over the two w8 scans: {launches['pipeline_w8']}",
+              flush=True)
+        compare_lossy(runs["w8"], runs["p12"], "w8 vs p12")
+    with phase("pipeline device-resample", LIMITS["pipeline_wire"]):
+        iso_vessel = native.hostprep_native.resample_iso_labels(
+            vessel, SPACING, 1.0)
+        zero_counts()
+        report_scan(pipe.process(scan, lobe, SPACING, vessel_np=iso_vessel),
+                    "device resample, cold")
+        runs["device"] = report_scan(
+            pipe.process(scan, lobe, SPACING, vessel_np=iso_vessel),
+            "device resample, warm")
+        launches["pipeline_device"] = path_counts("pipeline_device", {
+            k: 2 * n for k, n in FORWARD_LAUNCHES.items()})
+        print(f"# launches over the two device-resample scans: "
+              f"{launches['pipeline_device']}", flush=True)
+        compare_lossy(runs["device"], runs["p12"], "device resample vs p12")
+    return wc_heat
+
+
 def golden_step(settings, bench):
     """One step of `settings` with the kernels (bf16 activations, the f32
     image wire) on the training golden's batch from the trained tree:
@@ -1733,6 +1967,42 @@ def engine_phase(root, params, batch_stats, card):
     return counts, ckpt
 
 
+def engine_w8_phase(root, card):
+    """LesionSegTest with FAST_WIRE = "w8" over the engine split: every
+    good scan archived, the truncated one logged and missing, rows 1-4
+    launched once a scan (counts zeroed just before, read just after,
+    path engine_w8); each archived pred mask against the engine phase's
+    chunk-wire one at the w8 wire's Dice > 0.98. Returns the launch
+    counts."""
+    settings = engine_settings(root, FAST_WIRE="w8")
+    out = f"{root}/engine_w8"
+    eng = LesionSegTest(settings, output_path=out, device="cuda")
+    zero_counts()
+    with error_log(settings) as errors:
+        rows = eng.run()
+    torch.cuda.synchronize()
+    n = len(ENGINE_GOOD)
+    counts = path_counts("engine_w8", {k: n * c for k, c in
+                                       FORWARD_LAUNCHES.items()})
+    print(f"# engine w8 launches over {n} scans: {counts}", flush=True)
+    print_scan_times(eng, "w8", card)
+    if [r["uid"] for r in rows] != list(ENGINE_GOOD) or not all(
+            np.isfinite(r["dice"]) for r in rows) or not any(
+            f"({ENGINE_TRUNCATED})" in e for e in errors):
+        fail(f"engine w8: records {rows}, errors {errors}")
+    for uid in ENGINE_GOOD:
+        got = {k: read_mha(f"{out}/test/{sub}{uid}.mha")["array"]
+               for k, sub in (("pred", ""), ("post", "post/"))}
+        wc = {k: read_mha(f"{root}/engine/test/{sub}{uid}.mha")["array"]
+              for k, sub in (("pred", ""), ("post", "post/"))}
+        d = {k: dice(got[k], wc[k]) for k in got}
+        print(f"# engine w8 {uid} vs the wc wire: dice pred {d['pred']:.6f} "
+              f"post {d['post']:.6f}", flush=True)
+        if got["pred"].shape != SCAN_SHAPE or not d["pred"] > 0.98:
+            fail(f"engine w8: {uid}'s pred mask beyond the w8 wire's gate")
+    return counts
+
+
 def write_deploy_dirs(root, scan, lobe, uid="scan0"):
     """The weights phase's scan and lobes as a deployment directory."""
     write_mha(f"{root}/ct/{uid}.mha", scan, spacing=SPACING)
@@ -1743,9 +2013,9 @@ def write_deploy_dirs(root, scan, lobe, uid="scan0"):
 def engine_deploy_phase(root, ckpt, deploy, pipe, heat_run, card):
     """The CLI (python3 -m dram_tpu_torch.process_pipeline) in deployment
     mode on the weights phase's scan: its archived pred mask and heatmap
-    equal, bitwise, the pipeline phase's heatmap run of the same scan
-    (`heat_run`), and its post mask that of the same scan prepped
-    without the vessel mask (TestDataset has none)."""
+    equal, bitwise, the heatmap run of the same scan on the C++ prep in
+    the pipeline p12 phase (`heat_run`), and its post mask that of the
+    same scan prepped without the vessel mask (TestDataset has none)."""
     ct, lobes, uid = deploy
     out = f"{root}/deploy"
     env = dict(os.environ, DRAM_OUTPUT_ROOT=f"{root}/cli")
@@ -1771,9 +2041,10 @@ def engine_deploy_phase(root, ckpt, deploy, pipe, heat_run, card):
                             read_mha(f"{lobes}/{uid}.mha")["array"],
                             SPACING, windowing_span=WINDOW)
     novessel = run_scan(pipe, prep, True, "kernels, no vessel mask")
-    checks = {"pred vs the pipeline phase": (got["pred"], heat_run["pred"]),
-              "heatmap vs the pipeline phase": (got["heatmap"],
-                                                heat_run["heatmap_u8"]),
+    checks = {"pred vs the pipeline p12 phase": (got["pred"],
+                                                 heat_run["pred"]),
+              "heatmap vs the pipeline p12 phase": (got["heatmap"],
+                                                    heat_run["heatmap_u8"]),
               "pred without vessels": (got["pred"], novessel["pred"]),
               "heatmap without vessels": (got["heatmap"],
                                           novessel["heatmap_u8"]),
@@ -1914,9 +2185,12 @@ def main():
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
 
-    with phase("build", LIMITS["build"]):
+    with phase("build", LIMITS["build"]), \
+            concurrent.futures.ThreadPoolExecutor(1) as ex:
         cold = not os.path.exists(_build.library_path())
+        host = ex.submit(load_host_prep)
         _build.load()
+        host_build = host.result()
         print(f"# build: {os.path.basename(_build.library_path())} "
               f"({'built now' if cold else 'found built'})", flush=True)
 
@@ -1933,11 +2207,12 @@ def main():
         scan, lobe, _, vessel, _ = synth_scan(
             np.random.default_rng(SEED), SCAN_SHAPE,
             lesion_severity=SEVERITIES)
+        # the NumPy prep: the golden's chunks come from it
         t0 = time.perf_counter()
         prepc = prep_scan_chunks(scan, lobe, SPACING, vessel_u8=vessel,
-                                 windowing_span=WINDOW)
+                                 windowing_span=WINDOW, prep="numpy")
         prep_ms = (time.perf_counter() - t0) * 1e3
-        print(f"# host prep {prep_ms:.1f} ms: scan {SCAN_SHAPE} at "
+        print(f"# host prep (NumPy) {prep_ms:.1f} ms: scan {SCAN_SHAPE} at "
               f"{SPACING} mm -> iso crop {prepc['iso_shape']}, bucket "
               f"{prepc['bucket']}, chunks {prepc['x80_bits'].shape}",
               flush=True)
@@ -1986,13 +2261,21 @@ def main():
 
     del upipe
     torch.cuda.empty_cache()
+    with phase("host prep", LIMITS["host_prep"]):
+        preps = host_prep_phase((scan, lobe, vessel), prepc, prep_ms,
+                                host_build)
+    native_heat = wire_phases(pipe, (scan, lobe, vessel), preps, launches)
+    del preps
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_engine_") as root:
         with phase("engine", LIMITS["engine"]):
             launches["engine"], ckpt = engine_phase(root, params,
                                                     batch_stats, card)
+        with phase("engine w8", LIMITS["engine_w8"]):
+            launches["engine_w8"] = engine_w8_phase(root, card)
         deploy = write_deploy_dirs(root, scan, lobe)
         with phase("engine deploy", LIMITS["engine_deploy"]):
-            engine_deploy_phase(root, ckpt, deploy, pipe, b, card)
+            engine_deploy_phase(root, ckpt, deploy, pipe, native_heat, card)
         torch.cuda.empty_cache()
         with phase("engine host-stitch", LIMITS["engine_stitch"]):
             engine_stitch_phase(root, ckpt, deploy, card)

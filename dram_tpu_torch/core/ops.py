@@ -47,6 +47,11 @@ def otsu_threshold_u8(values, mask=None):
     `mask`; returns a 0-d float64 tensor holding a bin value. A single
     observed value is its own threshold; an empty mask gives 255. The
     cut statistics run in float64 (the JAX package runs them in f32)."""
+    return _otsu_u8(values, mask)[0]
+
+
+def _otsu_u8(values, mask):
+    """(`otsu_threshold_u8`, whether the masked values fill one bin)."""
     v = torch.floor(torch.clamp(values, 0.0, 255.0)).to(torch.int64)
     if mask is not None:
         v = torch.where(mask.bool(), v, torch.full_like(v, 256))
@@ -67,7 +72,8 @@ def otsu_threshold_u8(values, mask=None):
     var12 = torch.where((cut >= vmin) & (cut < vmax), var12,
                         torch.full_like(var12, float("-inf")))
     th = cut[torch.argmax(var12)]
-    return torch.clamp(torch.where(vmin >= vmax, vmin, th), 0.0, 255.0)
+    return (torch.clamp(torch.where(vmin >= vmax, vmin, th), 0.0, 255.0),
+            vmin == vmax)
 
 
 def otsu_threshold_from_hist(counts256):
@@ -132,11 +138,15 @@ def find_crops_np(mask, spacing, border):
     return tuple(slices)
 
 
-def binary_cam_threshold(values01, mask=None):
-    """Threshold (in the [0, 1] domain, f32) of a CAM volume: window to
-    u8, Otsu within `mask` (dram_tpu binary_cam_threshold, scaler 1)."""
-    w = windowing(values01, from_span=(0, 1), to_span=(0, 255))
-    return otsu_threshold_u8(w, mask=mask).to(torch.float32) / 255.0
+def binary_cam_threshold(values01, mask=None, scaler=1.0, from_span=(0, 1)):
+    """Threshold (in the [0, 1] domain, f32) of a CAM volume: window
+    `from_span` to u8, Otsu within `mask`, times `scaler` capped at 255,
+    unless the masked values fill one u8 bin, whose value is then the
+    threshold unscaled. An empty mask gives 255 * scaler."""
+    w = windowing(values01, from_span=from_span, to_span=(0, 255))
+    th, single = _otsu_u8(w, mask)
+    th = torch.where(single, th, torch.clamp(th * scaler, max=255.0))
+    return th.to(torch.float32) / 255.0
 
 
 def masked_mean(x, mask, dims):

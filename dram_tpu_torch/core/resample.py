@@ -1,9 +1,9 @@
-"""Separable 3-D resampling: align-corners trilinear resize on tensors and
-the ITK-semantics grid resample on host arrays.
+"""Separable 3-D resampling: align-corners trilinear resize and the
+ITK-semantics grid resample, on tensors and on host arrays.
 
-Port of dram_tpu/core/resample.py (`resize3d` :197, `resize3d_np` :349,
-`itk_resample3d_np` :365, `_axis_weights` :73) for the modes the
-inference paths use: each
+Port of dram_tpu/core/resample.py (`resize3d` :197, `itk_resample3d`
+:260, `resize3d_np` :349, `itk_resample3d_np` :365, `_axis_weights` :73)
+for the modes the inference paths use: each
 axis is resized by a dense (out, in) weight matrix with <= 2 non-zeros
 per row, built in float64 and stored as float32 exactly as the JAX
 package builds it.
@@ -84,6 +84,38 @@ def resize3d(x, out_size):
         Wt = torch.from_numpy(W).to(y.device)
         y = torch.movedim(torch.movedim(y, ax, -1) @ Wt.T, -1, ax)
     return y.to(dtype)
+
+
+def itk_resample3d(x, out_size, scales, method="linear", fill_value=0.0):
+    """SimpleITK-style grid resample of a (D, H, W) tensor ('linear' or
+    'nearest') by per-axis new/old spacing `scales`, in f32 on x's
+    device; outside-buffer voxels take `fill_value`. Linear contracts
+    each axis with its weight matrix (torch.matmul in f32), nearest
+    gathers."""
+    if x.ndim != 3:
+        raise ValueError("itk_resample3d operates on (D, H, W) volumes")
+    mode = {"linear": "itk_linear", "nearest": "itk_nearest"}.get(method)
+    if mode is None:
+        raise NotImplementedError(
+            f"interpolator {method!r} is not ported (ROADMAP Queue 1, data "
+            "layer)")
+    y = x.float()
+    valid_mask = None
+    for ax in range(3):
+        W, valid = _axis_weights(y.shape[ax], int(out_size[ax]), mode,
+                                 float(scales[ax]))
+        if mode == "itk_nearest":
+            idx = torch.from_numpy(np.argmax(W, axis=1)).to(y.device)
+            y = y.index_select(ax, idx)
+        else:
+            Wt = torch.from_numpy(W).to(y.device)
+            y = torch.movedim(torch.movedim(y, ax, -1) @ Wt.T, -1, ax)
+        v = torch.from_numpy(valid).to(y.device) \
+            .reshape([-1 if i == ax else 1 for i in range(3)])
+        valid_mask = v if valid_mask is None else valid_mask * v
+    if mode == "itk_nearest":
+        y = y * valid_mask
+    return y + (1.0 - valid_mask) * fill_value
 
 
 def resize3d_np(x, out_size, method="trilinear"):

@@ -5,9 +5,12 @@ Port of dram_tpu/infer/engine.py:LesionSegTest (:51). For each scan of a
 test split (RadboudCOVID, scored against its references) or of a
 deployment directory (TestDataset, no references), one of two paths:
 
-* fast (USE_FAST_INFERENCE, the default): `prep_scan_chunks` on the host,
-  then FastScanPipeline.process_chunks on the device, the chunk wire
-  (FAST_WIRE "wc"); outputs arrive on the scan grid;
+* fast (USE_FAST_INFERENCE, the default), by the C++ host prep and one of
+  two wires (FAST_WIRE): "wc" (the default), `prep_scan_chunks` on the
+  host, then FastScanPipeline.process_chunks on the device; "w8",
+  `prep_scan` (the windowed 8-bit scan of the lung window), then
+  FastScanPipeline.process_prepped, which crops and resizes the lobe
+  chunks on the device; outputs arrive on the scan grid;
 * host-stitch: the scan resampled to TEST_RESAMPLE_SPACING; each lobe
   cropped with a 5 mm border, masked to PAD_VALUE outside, windowed,
   resized to the model's chunk and run alone (batch 1); the refined CAM
@@ -22,8 +25,7 @@ per-lobe class accuracy) and archived: `<task>/<uid>.mha`, `heatmap/`,
 `<uid>.mha` exists is skipped; a scan that fails is logged with its
 traceback and the run goes on. The per-lobe class comes from the
 predicted lesion ratio through the CTSS interval table, as in dram_tpu.
-The FAST_WIRE "w8" wire and scan-level sharding are not ported (ROADMAP
-Queue 1).
+Scan-level sharding is not ported (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from ..core.ops import binary_cam_np, find_crops_np, windowing_np
 from ..core.resample import resize3d_np
 from ..data import transforms as T
 from ..data.datasets import RadboudCOVID, TestDataset
+from ..data.hostprep import prep_scan
 from ..data.io import write_array_to_mha_itk
 from ..losses.interval_reg import ratio_to_label
 from ..train.runner import JobRunner
@@ -49,6 +52,8 @@ from ..utils import AverageMeter
 from ..viz import (draw_mask_tile_singleview_heatmap,
                    plot_confusion_matrix_from_data)
 from .fast import FastScanPipeline, prep_scan_chunks
+
+WIRES = ("wc", "w8")
 
 
 def _np_metrics(pred, target, smooth=1e-5):
@@ -102,11 +107,9 @@ class LesionSegTest:
         if use_fast_path is None:
             use_fast_path = bool(getattr(s, "USE_FAST_INFERENCE", True))
         self.use_fast_path = use_fast_path
-        wire = str(getattr(s, "FAST_WIRE", "wc"))
-        if use_fast_path and wire != "wc":
-            raise NotImplementedError(
-                f"FAST_WIRE={wire!r}: only the 'wc' chunk wire is ported "
-                "(ROADMAP Queue 1: the w8 wire and process_prepped)")
+        self.wire = str(getattr(s, "FAST_WIRE", "wc"))
+        if use_fast_path and self.wire not in WIRES:
+            raise ValueError(f"FAST_WIRE={self.wire!r}: one of {WIRES}")
         n_shard = int(getattr(s, "SHARD_SCANS",
                               os.environ.get("DRAM_SHARD_SCANS", "0")) or 0)
         if n_shard > 1:
@@ -147,25 +150,36 @@ class LesionSegTest:
 
     def _fast(self):
         if self._fast_pipe is None:
-            self._fast_pipe = FastScanPipeline(self.model, device=self.device)
+            s = self.settings
+            self._fast_pipe = FastScanPipeline(
+                self.model, device=self.device,
+                chunk_size=tuple(s.RESAMPLE_SIZE),
+                windowing_span=(s.WINDOWING_MIN, s.WINDOWING_MAX),
+                pad_value=float(s.PAD_VALUE))
         return self._fast_pipe
 
     def process_scan_fast(self, scan_data):
-        """Fast path: host prep of the chunk wire, then the device
-        pipeline; outputs arrive on the scan grid."""
+        """Fast path: the C++ host prep of the FAST_WIRE wire, then the
+        device pipeline; outputs arrive on the scan grid."""
         s = self.settings
         meta = scan_data["meta"]
+        args = (scan_data["#image"].astype(np.int16),
+                scan_data["#lobe_reference"], meta["spacing"])
+        kw = dict(iso_spacing=float(s.TEST_RESAMPLE_SPACING),
+                  pad_value=float(s.PAD_VALUE),
+                  vessel_u8=scan_data.get("#vessel_reference"),
+                  windowing_span=(s.WINDOWING_MIN, s.WINDOWING_MAX))
         t0 = time.perf_counter()
-        prep = prep_scan_chunks(
-            scan_data["#image"].astype(np.int16),
-            scan_data["#lobe_reference"], meta["spacing"],
-            iso_spacing=float(s.TEST_RESAMPLE_SPACING),
-            pad_value=float(s.PAD_VALUE),
-            vessel_u8=scan_data.get("#vessel_reference"),
-            windowing_span=(s.WINDOWING_MIN, s.WINDOWING_MAX),
-            chunk_size=tuple(s.RESAMPLE_SIZE))
+        if self.wire == "wc":
+            prep = prep_scan_chunks(*args, **kw,
+                                    chunk_size=tuple(s.RESAMPLE_SIZE))
+        else:
+            prep = prep_scan(*args, **kw)
         prep_ms = (time.perf_counter() - t0) * 1e3
-        out = self._fast().process_chunks(prep, want_heatmap=True)
+        if self.wire == "wc":
+            out = self._fast().process_chunks(prep, want_heatmap=True)
+        else:
+            out = self._fast().process_prepped(prep, want_heatmap=True)
         cls_preds, cls_targets = [], []
         for li in range(1, 6):
             target = None

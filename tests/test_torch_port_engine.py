@@ -8,9 +8,10 @@ dram_tpu's runner draws from RANDOM_SEED, the top conv scaled by 100 and
 its bias lowered by 1, so that the logits straddle 0 by about +-2, every
 lobe predicts a class >= 1 and the masks are not empty.
 Then it runs LesionSegTest of both packages
-on both paths (fast and host-stitch) over the same files. dram_tpu's C++
-host prep is switched off for its runs: the port follows its NumPy branch
-(the C++ resample rounds +-1 HU differently).
+on both paths (fast and host-stitch) over the same files. On the fast path
+both run their C++ host preps, which give the same bits on one host; on
+the host-stitch path dram_tpu's C++ is switched off, since its transforms
+resample with it where the port's use NumPy.
 
 Tolerances: records.csv's iou, dice, iou_post and dice_post within 5e-3
 (the masks may differ by a Dice of 0.005, the repo's mask gate; on these
@@ -132,7 +133,6 @@ def world(tmp_path_factory):
                                       model=MODEL))
     runs = {}
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(dram_tpu.native, "hostprep_native", None, raising=False)
         # the runner's scalar logger (training only) would import
         # tensorboard and tensorflow, ~9 s
         mp.setattr(jtrainer, "SummaryWriter", _NoSummary)
@@ -140,6 +140,9 @@ def world(tmp_path_factory):
         jckpt.save_checkpoint(checkpoint, {"model": tree, "epoch": 1,
                                            "iteration": 10})
         for path, fast in (("fast", True), ("stitch", False)):
+            if not fast:
+                mp.setattr(dram_tpu.native, "hostprep_native", None,
+                           raising=False)
             je = JaxLesionSegTest(settings_module=JaxSettings(sfile),
                                   output_path=f"{out}/jax_{path}",
                                   use_fast_path=fast)
@@ -402,12 +405,62 @@ def test_truncated_scan_fails_alone(world, tmp_path, caplog):
 
 
 @pytest.mark.parametrize("setting,value,match", [
-    ("FAST_WIRE", "w8", "Queue 1"), ("SHARD_SCANS", 2, "Queue 1 item 5")])
+    ("SHARD_SCANS", 2, "Queue 1 item 5")])
 def test_unported_options_raise(world, tmp_path, setting, value, match):
     settings = with_settings(Settings(world["sfile"]), **{setting: value})
     with pytest.raises(NotImplementedError, match=match):
         LesionSegTest(settings_module=settings,
                       output_path=str(tmp_path), device="cpu")
+
+
+def test_unknown_fast_wire_raises(world, tmp_path):
+    settings = with_settings(Settings(world["sfile"]), FAST_WIRE="p12")
+    with pytest.raises(ValueError, match="one of"):
+        LesionSegTest(settings_module=settings,
+                      output_path=str(tmp_path), device="cpu")
+
+
+def test_w8_wire_archives_masks(world, tmp_path, monkeypatch):
+    """FAST_WIRE = "w8" (prep_scan's windowed 8-bit scan, then
+    process_prepped) in both packages: every scan archived with its
+    scores; the port's masks equal dram_tpu's w8 masks at Dice >= 0.995
+    and its pred masks are within the w8 wire's gate of its chunk-wire
+    run (Dice > 0.98, tests/test_fast_infer.py); prep and device stages
+    timed. (The post masks of these 24 x 32 x 32 scans move further
+    between the wires, in dram_tpu alike: Dice 0.961 on p002_s1.)"""
+    monkeypatch.setattr(jtrainer, "SummaryWriter", _NoSummary)
+    jax_settings = JaxSettings(world["sfile"])
+    jax_settings.FAST_WIRE = "w8"
+    JaxLesionSegTest(settings_module=jax_settings,
+                     output_path=str(tmp_path / "jax")).run()
+    settings = with_settings(Settings(world["sfile"]), FAST_WIRE="w8")
+    eng = LesionSegTest(settings_module=settings,
+                        output_path=str(tmp_path / "port"), device="cpu")
+    rows = eng.run()
+    assert [row["uid"] for row in rows] == ["p000_s1", "p001_s1", "p002_s1"]
+    assert all(np.isfinite(row["dice"]) for row in rows)
+    wc_dir = world["runs"]["fast"]["port_dir"]
+    nonempty = []
+    for uid in ("p000_s1", "p001_s1", "p002_s1"):
+        for sub in ("", "post/"):
+            got = io.read_mha(str(tmp_path / "port" / "test" /
+                                  f"{sub}{uid}.mha"))["array"]
+            want = jio.read_mha(str(tmp_path / "jax" / "test" /
+                                    f"{sub}{uid}.mha"))["array"]
+            assert got.shape == SIZE and got.dtype == np.uint8
+            assert _dice(got, want) >= 0.995, (sub, uid)
+            nonempty.append(got.any())
+        wc = io.read_mha(f"{wc_dir}/{uid}.mha")["array"]
+        pred = io.read_mha(str(tmp_path / "port" / "test" /
+                               f"{uid}.mha"))["array"]
+        assert _dice(pred, wc) > 0.98, uid
+        assert (tmp_path / "port" / "test" / "heatmap" /
+                f"{uid}.mha").exists()
+    assert any(nonempty)
+    assert [t["uid"] for t in eng.timings] == \
+        ["p000_s1", "p001_s1", "p002_s1"]
+    assert all({"prep", "pre", "model", "post"} <= set(t)
+               for t in eng.timings)
 
 
 def test_cuda_request_without_gpu_raises(world, tmp_path):
@@ -454,8 +507,8 @@ def test_process_chunks_returns_present(world):
         mp.setattr(dram_tpu.native, "hostprep_native", None, raising=False)
         want = r["jax"]._fast().process_chunks(jax_prep_scan_chunks(*args),
                                                want_heatmap=True)
-    got = r["port"]._fast().process_chunks(prep_scan_chunks(*args),
-                                           want_heatmap=True)
+    got = r["port"]._fast().process_chunks(
+        prep_scan_chunks(*args, prep="numpy"), want_heatmap=True)
     np.testing.assert_array_equal(got["present"],
                                   np.asarray(want["present"]))
     np.testing.assert_array_equal(got["present"], [1, 1, 1, 0, 1])

@@ -49,8 +49,8 @@ assert {"dram_tpu_torch.train.trainer", "dram_tpu_torch.losses.refine",
         "dram_tpu_torch.infer.engine", "dram_tpu_torch.data.io",
         "dram_tpu_torch.data.datasets", "dram_tpu_torch.data.transforms",
         "dram_tpu_torch.train.checkpoint", "dram_tpu_torch.train.runner",
-        "dram_tpu_torch.viz", "dram_tpu_torch.process_pipeline"} \
-    <= set(names)
+        "dram_tpu_torch.viz", "dram_tpu_torch.process_pipeline",
+        "dram_tpu_torch.native"} <= set(names)
 print(len(names))
 """)
     assert r.returncode == 0, r.stderr

@@ -1,5 +1,5 @@
 """dram_tpu_torch.infer.fast vs dram_tpu.infer.fast on small synthetic
-scans: the NumPy host prep bit for bit, and the whole chunk-wire slice
+scans: the NumPy host prep (prep="numpy") bit for bit, and the whole chunk-wire slice
 (prep -> pre -> model -> post) at mask Dice >= 0.995 with the same Otsu
 bin, for both values of want_heatmap."""
 
@@ -58,7 +58,7 @@ def test_prep_bit_identical(numpy_prep, case):
         vessel, spacing = None, (1.0, 1.0, 1.0)
     args = (scan, lobe, spacing, 1.0, -2048, vessel, SPAN, CHUNK, 5, 5.0)
     want = jfast._prep_scan_chunks_np(*args)
-    got = fast.prep_scan_chunks(*args)
+    got = fast.prep_scan_chunks(*args, prep="numpy")
     for k in ("x80_bits", "lobe_bits", "cand_bits", "starts", "present",
               "offsets", "sizes", "crop_lo"):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)

@@ -393,7 +393,7 @@ def test_upsample_matches_resize3d_bf16():
 
 def test_golden_matches_the_ports_prep():
     """The committed golden (tools/make_port_golden.py) was made from the
-    port's prep of chip_smoke.py's scan: the same draw and lobe bits
+    port's NumPy prep of chip_smoke.py's scan: the same draw and lobe bits
     (sha256) and the same chunk values within chip_smoke's bound on the
     8^3 block means (the chunk bits' own sha256 depends on the host's
     BLAS, which rounds the float32 resample), so the golden cannot drift
@@ -404,7 +404,8 @@ def test_golden_matches_the_ports_prep():
         lesion_severity=chip_smoke.SEVERITIES)
     prepc = fast.prep_scan_chunks(scan, lobe, chip_smoke.SPACING,
                                   vessel_u8=vessel,
-                                  windowing_span=chip_smoke.WINDOW)
+                                  windowing_span=chip_smoke.WINDOW,
+                                  prep="numpy")
     assert chip_smoke.sha256(scan, lobe, vessel) == str(gold["draw_sha256"])
     assert chip_smoke.sha256(prepc["lobe_bits"]) == str(gold["lobe_sha256"])
     np.testing.assert_allclose(chip_smoke.block_means(prepc["x80_bits"]),

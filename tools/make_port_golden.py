@@ -6,9 +6,10 @@
 
 Runs the JAX package's FastScanPipeline.process_chunks on the CPU over
 chip_smoke.py's scan (data/synth.py:synth_scan at SCAN_SHAPE, SPACING,
-SEVERITIES, seed SEED, window WINDOW), prepped by the port's own
-prep_scan_chunks, with the flagship DC3DATGeneric in bf16 and the trained
-weights (assets/bench_weights.ckpt.xz), for want_heatmap False. On the CPU
+SEVERITIES, seed SEED, window WINDOW), prepped by the port's
+prep_scan_chunks with prep="numpy" (the NumPy prep), with the flagship
+DC3DATGeneric in bf16 and the trained weights
+(assets/bench_weights.ckpt.xz), for want_heatmap False. On the CPU
 the JAX package runs its defaults use_fused_stack = use_pallas_conv =
 use_pallas_attention = False: the unfused stack with XLA convs, which
 compute the same functions as the Pallas conv and attention kernels.
@@ -54,7 +55,7 @@ def scan_prep():
         lesion_severity=chip_smoke.SEVERITIES)
     return (scan, lobe, vessel), prep_scan_chunks(
         scan, lobe, chip_smoke.SPACING, vessel_u8=vessel,
-        windowing_span=chip_smoke.WINDOW)
+        windowing_span=chip_smoke.WINDOW, prep="numpy")
 
 
 def pipeline():

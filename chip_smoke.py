@@ -121,6 +121,30 @@ traceback and a non-zero exit:
    golden's own limits (GOLDEN_REL_L2, GOLDEN_BN_REL_L2), placed between
    sound and broken kernels' readings; launch counts zeroed before each
    step and read after (paths train_golden, train_golden_unfused).
+16. train epochs (after 15): the training CLI's main (python3 -m
+   dram_tpu_torch.train) on the flagship's settings at full width (bf16,
+   batch 10, 80^3 chunks, four loader threads) over make_synthetic_dataset's
+   four scans of 160 x 192 x 192 and their lobe chunks, from the trained
+   tree: two epochs of ~4 steps, each validated (the chunk wire's prep and
+   process_chunks_val) and checkpointed. Gates: finite losses, records.csv
+   in dram_tpu's columns, 0.ckpt and 1.ckpt, the scheduler stepped twice
+   and the lr at base * gamma^2, every kernel of the train_epochs path
+   (the flagship step's and the chunk wire's forward) launched and no
+   other (counts zeroed just before, read just after). Per epoch:
+   tr_data_time and tr_batch_time (s a step), steps / s, the validation's
+   prep and process_chunks_val ms, the checkpoint's save ms, peak MiB;
+   the digest of epoch 0's sampled chunk uids beside EPOCH_UIDS_SHA256
+   (not a gate).
+17. train val paths: a runner reloaded from the trained tree validates
+   by the fast path and by the host-stitch loop (batch-1 forwards): the
+   same label and ratios within VAL_RATIO_RTOL (placed between sound and
+   broken epilogues by tools/val_gate_mutants.py); the model is back in
+   train mode after each validation.
+18. train resume: a runner with RELOAD_CHECKPOINT (model, optimizer,
+   metrics) holds 1.ckpt's parameters, BatchNorm buffers, Adam state and
+   scheduler bitwise, as the first run left them; NUM_EPOCHS = 3 then
+   trains epochs 1 and 2 (the loop restarts the checkpoint's epoch, as
+   dram_tpu's does) and writes 2.ckpt.
 
 Prints a `{"kernels": [...]}` JSON line and, last, the device line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before it.
@@ -148,8 +172,11 @@ from dram_tpu_torch import golden, native, weights
 from dram_tpu_torch.configs import (st_dram_ref, st_dram_ref_att,
                                     with_settings)
 from dram_tpu_torch.core.ops import binary_cam_np
+from dram_tpu_torch.data.datasets import RadboudCOVIDLobeVesselChunk
 from dram_tpu_torch.data.hostprep import prep_scan
 from dram_tpu_torch.data.io import read_mha, write_mha
+from dram_tpu_torch.data.prepare_data import make_synthetic_dataset
+from dram_tpu_torch.data.sampler import LobeChunkCTSSSampler
 from dram_tpu_torch.data.synth import synth_scan, train_batch
 from dram_tpu_torch.infer.engine import LesionSegTest
 from dram_tpu_torch.infer.fast import FastScanPipeline, prep_scan_chunks
@@ -158,8 +185,13 @@ from dram_tpu_torch.kernels import (_build, conv3d, conv_stack, pool,
                                     upsample, window_attention)
 from dram_tpu_torch.models import DC3D, DC3DATGeneric
 from dram_tpu_torch.train import train_steps
-from dram_tpu_torch.train.checkpoint import save_checkpoint
+from dram_tpu_torch.train.__main__ import main as train_main
+from dram_tpu_torch.train.checkpoint import (adam_state_tree, load_checkpoint,
+                                             newest_checkpoint,
+                                             save_checkpoint)
+from dram_tpu_torch.train.chunk_train import LesionSegChunkTrain
 from dram_tpu_torch.train.trainer import build_model
+from dram_tpu_torch.utils import Settings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LIMITS = {"card": 30, "build": 180, "kernel": 60, "weights": 60,
@@ -170,7 +202,8 @@ LIMITS = {"card": 30, "build": 180, "kernel": 60, "weights": 60,
           "conv_sweep": 240, "upsample_sweep": 120, "attention_sweep": 120,
           "train_golden": 240, "engine": 300, "engine_deploy": 180,
           "engine_stitch": 300, "host_prep": 300, "pipeline_wire": 120,
-          "engine_w8": 300}
+          "engine_w8": 300, "train_epochs": 300, "train_val_paths": 120,
+          "train_resume": 240}
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor-core
 # and f32 CUDA-core flop/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -1210,6 +1243,10 @@ PATHS["train_golden_unfused"] = PATHS["train_unfused"]
 # scan) and the engine on the w8 wire run the chunk wire's forward
 for _p in ("pipeline_p12", "pipeline_w8", "pipeline_device", "engine_w8"):
     PATHS[_p] = PATHS["pipeline"]
+# the epoch loop: the flagship's training steps and, in validation, the
+# chunk wire's forward
+PATHS["train_epochs"] = tuple(dict.fromkeys(PATHS["train_att"]
+                                            + PATHS["pipeline"]))
 FORWARD_LAUNCHES = {"conv3x3x3": 14, "maxpool2": 3, "upsample2x": 3,
                     "stencil_attention": 1}
 
@@ -2152,6 +2189,259 @@ def engine_stitch_phase(root, ckpt, deploy, card):
 
 
 
+# --- the training epoch loop (python3 -m dram_tpu_torch.train) -----------
+
+# make_synthetic_dataset's RadboudCOVID layout of EPOCH_SCANS scans of
+# SCAN_SHAPE (seed SEED): three train, the last validates; their lobe
+# chunks (all four scans' chunks, as the chunk dataset reads memo.csv)
+EPOCH_SCANS = 4
+# about this many steps an epoch at batch 10: BALANCED_LABEL_COUNT is
+# ceil(EPOCH_STEPS * 10 / the labels the chunks hold)
+EPOCH_STEPS = 4
+# the columns of dram_tpu's records.csv (dram_tpu/train/trainer.py:1049-1062)
+RECORD_COLUMNS = ["epoch", "iteration", "learning_rate", "val_time",
+                  "val_acc_reg_cls", "tr_loss", "tr_data_time",
+                  "tr_batch_time"]
+# sha256 of epoch 0's sampled chunk uids (LobeChunkCTSSSampler of seed
+# RANDOM_SEED on that dataset), computed on an Intel Xeon host with numpy
+# 2.x; printed beside this host's (a finding, not a gate)
+EPOCH_UIDS_SHA256 = ("385a6dfd0dc3fd8b7b6c5941f4df67e003aa157c905286fd3961eeda"
+                     "9ed51316")
+# the validation's two paths on a scan: |fast - host-stitch| / host-stitch
+# of the predicted lesion ratio. The sound epilogue reads 1.07e-5 on the
+# trained tree; without the lung mask it reads 0.382, without the sigmoid
+# 36.2 (tools/val_gate_mutants.py on an H100; PERF.md). Without the
+# `present` flags it reads as sound: an absent lobe's mask is empty.
+VAL_RATIO_RTOL = 1e-2
+
+
+def epoch_label_count(db):
+    """BALANCED_LABEL_COUNT for about EPOCH_STEPS steps of batch 10."""
+    with open(f"{db}/wss_chunk/memo.csv") as fp:
+        labels = {row["ctss"] for row in csv.DictReader(fp)}
+    return -(-EPOCH_STEPS * 10 // len(labels))
+
+
+def epoch_settings(root, db, count, **values):
+    """A settings file: the flagship's configs/st_dram_ref_att with the
+    dataset and outputs under `root`, logging to stderr, two epochs,
+    validation and a checkpoint every epoch; `values` appended."""
+    path = f"{root}/epochs_settings.py"
+    lines = ["from dram_tpu_torch.configs.st_dram_ref_att import *  "
+             "# noqa: F401,F403",
+             f"DB_PATH = {db!r}", f"VALID_CSV = {db + '/val.csv'!r}",
+             f"TEST_CSV = {db + '/test.csv'!r}",
+             f"DEBUG_PATH = {root + '/debug/'!r}",
+             f"MODEL_ROOT_PATH = {root + '/models/'!r}", "LOGGING = {}",
+             "NUM_EPOCHS = 2", "VAL_EPOCHS = 1", "STATE_EPOCHS = 1",
+             "NUM_WORKERS = 4", f"BALANCED_LABEL_COUNT = {count}"]
+    lines += [f"{k} = {v!r}" for k, v in values.items()]
+    with open(path, "w") as fp:
+        fp.write("\n".join(lines) + "\n")
+    return path
+
+
+def epoch_uids_digest(db, count, seed):
+    """sha256 of the chunk uids epoch 0's sampler draws, in order."""
+    memo = f"{db}/wss_chunk/memo.csv"
+    ds = RadboudCOVIDLobeVesselChunk(
+        db, RadboudCOVIDLobeVesselChunk.get_series_uids(memo))
+    smp = LobeChunkCTSSSampler(None, ds, 10, balance_label_count=count,
+                               seed=seed)
+    return hashlib.sha256("\n".join(ds.uids[i] for i in smp)
+                          .encode()).hexdigest()
+
+
+def print_epochs(runner, label, card):
+    """One line per epoch of the runner's history; fails on a non-finite
+    loss."""
+    for e in runner.history:
+        val = e.get("val_scans", [])
+        vms = "; ".join(f"{v['uid']}: prep {v['prep_ms']:.1f} + "
+                        f"process_chunks_val {v['val_ms']:.1f} ms"
+                        for v in val if "prep_ms" in v)
+        print(f"# {label} epoch {e['epoch']}: {e['steps']} steps of batch "
+              f"10, losses {[round(x, 6) for x in e['losses']]}; "
+              f"tr_data_time {e['tr_data_time']:.4f} s, tr_batch_time "
+              f"{e['tr_batch_time']:.4f} s a step "
+              f"({1.0 / e['tr_batch_time']:.3f} steps/s), epoch "
+              f"{e['seconds']:.2f} s; validation {vms}; checkpoint save "
+              f"{e.get('save_ms', float('nan')):.1f} ms; peak "
+              f"{e['peak_mib'] or 0:.0f} MiB ({card})", flush=True)
+        if not e["losses"] or not np.isfinite(e["losses"]).all():
+            fail(f"{label} epoch {e['epoch']}: losses {e['losses']}")
+
+
+def train_epochs_phase(root, params, batch_stats, card):
+    """The CLI's main on the flagship settings (full widths, bf16, batch
+    10, 80^3 chunks, four loader threads) over the synthetic dataset,
+    from the trained tree: two epochs, each validated and checkpointed.
+    Gates: finite losses, records.csv's two rows in dram_tpu's columns,
+    0.ckpt and 1.ckpt, the scheduler stepped twice and the optimizer at
+    base * gamma^2, every kernel of the train_epochs path launched and no
+    other (counts zeroed just before, read just after). Returns (counts,
+    runner, settings path, trained checkpoint)."""
+    db = f"{root}/db"
+    t0 = time.perf_counter()
+    info = make_synthetic_dataset(db, n_scans=EPOCH_SCANS, size=SCAN_SHAPE,
+                                  seed=SEED)
+    count = epoch_label_count(db)
+    print(f"# train epochs: dataset of {EPOCH_SCANS} scans {SCAN_SHAPE}, "
+          f"{info['n_chunks']} lobe chunks, BALANCED_LABEL_COUNT {count}, "
+          f"made in {time.perf_counter() - t0:.1f} s", flush=True)
+    trained = f"{root}/trained.ckpt"
+    save_checkpoint(trained, {"model": {"params": params,
+                                        "batch_stats": batch_stats},
+                              "epoch": 0, "iteration": 0})
+    smp = epoch_settings(root, db, count)
+    zero_counts()
+    t0 = time.perf_counter()
+    runner = train_main(["1", str(st_dram_ref_att.OPTIMIZER["lr"]),
+                         "--batch_size", "10", "--smp", smp,
+                         "--ckp_path", trained, "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = path_counts("train_epochs")
+    print(f"# train epochs launches: {counts}", flush=True)
+    print(f"# train epochs: the CLI's main took {wall:.1f} s ({card})",
+          flush=True)
+    print_epochs(runner, "train epochs", card)
+    steps = [e["steps"] for e in runner.history]
+    if len(steps) != 2 or not all(3 <= n <= 6 for n in steps):
+        fail(f"train epochs: steps an epoch {steps}")
+    with open(runner.exp_path + "records.csv") as fp:
+        rows = list(csv.DictReader(fp))
+    if len(rows) != 2 or list(rows[0]) != RECORD_COLUMNS or not all(
+            np.isfinite(float(r["tr_loss"])) for r in rows):
+        fail(f"train epochs: records.csv {rows}")
+    for f in ("0.ckpt", "1.ckpt"):
+        if not os.path.exists(runner.exp_path + f):
+            fail(f"train epochs: no {f}")
+    sch = runner.scheduler
+    lr = runner.optimizer.param_groups[0]["lr"]
+    if sch.steps != 2 or abs(lr - sch.base_lr * sch.gamma ** 2) > \
+            1e-12 * sch.base_lr:
+        fail(f"train epochs: scheduler steps {sch.steps}, lr {lr}")
+    print(f"# train epochs: records.csv rows {len(rows)}, scheduler steps "
+          f"{sch.steps}, lr {lr:.6g} = {sch.base_lr:.6g} * "
+          f"{sch.gamma}^2, checkpoints {sorted(os.listdir(runner.exp_path))}",
+          flush=True)
+    digest = epoch_uids_digest(db, count, st_dram_ref_att.RANDOM_SEED)
+    print(f"# train epochs: epoch 0's sampled chunk uids sha256 {digest} "
+          f"(recorded: {EPOCH_UIDS_SHA256}; "
+          f"{'equal' if digest == EPOCH_UIDS_SHA256 else 'DIFFERENT'})",
+          flush=True)
+    return counts, runner, smp, trained
+
+
+def val_path_readings(runner):
+    """Validate once per path (fast, then host-stitch) with the model in
+    train mode before each: per scan (uid, fast ratio, host-stitch ratio,
+    fast label, host-stitch label, target). Fails when validation leaves
+    the model out of train mode."""
+    out = {}
+    for fast in (True, False):
+        runner.settings.VAL_USE_FAST_PIPELINE = fast
+        runner.model.train()
+        preds = []
+        orig = runner.evaluate_scan
+
+        def keep(sample, _f=orig):
+            r = _f(sample)
+            preds.append(r[:2])
+            return r
+        runner.evaluate_scan = keep
+        try:
+            runner.validate()
+        finally:
+            runner.evaluate_scan = orig
+        if not runner.model.training:
+            fail("train val paths: validate() left the model in eval mode")
+        out[fast] = [(t["uid"], t["ratio"], p[0], p[1])
+                     for t, p in zip(runner.val_timings, preds)]
+    runner.settings.VAL_USE_FAST_PIPELINE = True
+    return [(f[0], f[1], h[1], f[2], h[2], f[3])
+            for f, h in zip(out[True], out[False])]
+
+
+def train_val_paths_phase(smp, trained, card):
+    """A runner of the same settings reloaded from the trained tree:
+    each validation scan's fast path (the chunk wire's prep and
+    process_chunks_val) and host-stitch loop (batch-1 forwards) give the
+    same ordinal label and ratios within VAL_RATIO_RTOL; validation hands
+    the model back in train mode."""
+    s = Settings(smp)
+    s.RELOAD_CHECKPOINT, s.RELOAD_CHECKPOINT_PATH = True, trained
+    runner = LesionSegChunkTrain(s, device="cuda")
+    for uid, fr, hr, fl, hl, target in val_path_readings(runner):
+        rel = abs(fr - hr) / max(abs(hr), 1e-12)
+        print(f"# train val paths {uid}: fast ratio {fr:.6f} (label {fl}), "
+              f"host-stitch {hr:.6f} (label {hl}), relative difference "
+              f"{rel:.3e} (limit {VAL_RATIO_RTOL}), target {target} "
+              f"({card})", flush=True)
+        if fl != hl or not rel <= VAL_RATIO_RTOL:
+            fail(f"train val paths: {uid} disagrees between the paths")
+    print("# train val paths: the model is back in train mode after each "
+          "validation", flush=True)
+
+
+def train_resume_phase(smp, first, card):
+    """A runner with RELOAD_CHECKPOINT (newest checkpoint, model,
+    optimizer and metrics): its parameters, BatchNorm buffers, Adam state
+    and scheduler equal the checkpoint's and the first run's bitwise;
+    then NUM_EPOCHS = 3 trains on from the checkpoint's epoch (1, as
+    dram_tpu's loop restarts it) and writes 2.ckpt."""
+    s = Settings(smp)
+    s.RELOAD_CHECKPOINT, s.RELOAD_CHECKPOINT_PATH = True, None
+    s.RELOAD_DICT_LIST = ["model", "optimizer", "metrics"]
+    s.NUM_EPOCHS = 3
+    again = LesionSegChunkTrain(s, device="cuda")
+    path = newest_checkpoint(again.exp_path)
+    saved = load_checkpoint(path)
+    got = {"model": again.model_state_tree(),
+           "optimizer": adam_state_tree(again.optimizer, again.model)}
+
+    def leaves(tree, prefix=""):
+        for k, v in sorted(tree.items()):
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            else:
+                yield prefix + k, np.asarray(v)
+    n = 0
+    for key in ("model", "optimizer"):
+        want = dict(leaves(saved[key]))
+        have = dict(leaves(got[key]))
+        if want.keys() != have.keys():
+            fail(f"train resume: {key} trees differ in names")
+        for k, v in want.items():
+            if v.dtype != have[k].dtype or not np.array_equal(v, have[k]):
+                fail(f"train resume: {key} {k} differs from {path}")
+            n += 1
+    live = first.model.state_dict()
+    for k, v in again.model.state_dict().items():
+        if not torch.equal(v, live[k]):
+            fail(f"train resume: {k} differs from the first run's")
+    if again.scheduler.state_dict() != first.scheduler.state_dict() or \
+            again.scheduler.state_dict() != saved["scheduler"]:
+        fail("train resume: scheduler state")
+    print(f"# train resume: {os.path.basename(path)} reloaded, {n} arrays "
+          "(parameters, BatchNorm buffers, Adam count / mu / nu and "
+          f"hyperparameters) and the scheduler ({again.scheduler.steps} steps) "
+          "bitwise equal to the checkpoint and the first run", flush=True)
+    zero_counts()
+    again.run()
+    torch.cuda.synchronize()
+    counts = path_counts("train_epochs")
+    print_epochs(again, "train resume", card)
+    if not os.path.exists(again.exp_path + "2.ckpt") or \
+            [e["epoch"] for e in again.history] != [1, 2]:
+        fail("train resume: epochs 1..2 and 2.ckpt")
+    print(f"# train resume: epochs {[e['epoch'] for e in again.history]}, "
+          f"2.ckpt written, scheduler steps {again.scheduler.steps}, "
+          f"launches {counts}", flush=True)
+    return counts
+
+
 def unfused_vs_fused(f, u):
     """Information, no gate: the unfused and the fused kernel runs of the
     flagship step compute one function with two rounding configurations;
@@ -2329,6 +2619,19 @@ def main():
         train_golden_phase(bench, launches,
                            (("train_golden", st_dram_ref_att),
                             ("train_golden_unfused", unfused)))
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_epochs_") as root:
+        bench_params, bench_stats = weights.load_bench_weights(bench)
+        with phase("train epochs", LIMITS["train_epochs"]):
+            launches["train_epochs"], first, smp, trained = \
+                train_epochs_phase(root, bench_params, bench_stats, card)
+        with phase("train val paths", LIMITS["train_val_paths"]):
+            train_val_paths_phase(smp, trained, card)
+        torch.cuda.empty_cache()
+        with phase("train resume", LIMITS["train_resume"]):
+            train_resume_phase(smp, first, card)
+        del first
+        torch.cuda.empty_cache()
 
     kernels = []
     for k in WRAPPERS:

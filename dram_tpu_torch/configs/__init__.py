@@ -18,6 +18,8 @@ _ALIASES = {
     "torch.optim.lr_scheduler.ExponentialLR":
         "dram_tpu_torch.train.trainer.ExponentialLR",
     "job_runner.LesionSegTest": "dram_tpu_torch.infer.engine.LesionSegTest",
+    "job_runner.LesionSegChunkTrain":
+        "dram_tpu_torch.train.chunk_train.LesionSegChunkTrain",
 }
 
 

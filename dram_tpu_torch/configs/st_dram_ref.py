@@ -3,9 +3,12 @@
 The port's copy of what a training step reads from
 dram_tpu/configs/st_dram_ref.py (the reference exp_settings/st_dram_ref.py):
 the published DC3D widths, chunk size, batch, loss, optimizer, scheduler,
-initializer, windowing, compute dtype and seed. Method names resolve
-inside the port (dram_tpu_torch.configs.get_callable_by_name). The runner and
-inference settings (paths under DRAM_DATA_ROOT and DRAM_OUTPUT_ROOT,
+initializer, windowing, compute dtype and seed, and the epoch loop's
+settings (epochs, validation and checkpoint cadence, loader threads,
+augmentation ratio, balanced chunks per label, the training and
+validation splits). Method names resolve inside the port
+(dram_tpu_torch.configs.get_callable_by_name). The runner and inference
+settings (paths under DRAM_DATA_ROOT and DRAM_OUTPUT_ROOT,
 checkpoint reload, resampling, pad value, logging) are those of
 dram_tpu/configs/st_dram_ref.py, which the inference engine reads.
 """
@@ -21,6 +24,8 @@ RELOAD_DICT_LIST = ["model"]
 
 DB_PATH = _ROOT
 TEST_CSV = f"{_ROOT}/test.csv"
+TRAIN_CSV = f"{_ROOT}/wss_train.csv"
+VALID_CSV = f"{_ROOT}/val.csv"
 DEBUG_PATH = f"{_OUT}/test_cases/"
 MODEL_ROOT_PATH = f"{_OUT}/models/"
 
@@ -31,6 +36,16 @@ EXP_NAME = "st_dram_ref"
 MODEL_NAME = "DC3D"
 
 RESAMPLE_MODE = "fixed_size"
+
+# the epoch loop (train/chunk_train.py)
+NUM_EPOCHS = 200
+VAL_EPOCHS = 10
+STATE_EPOCHS = 10
+NUM_WORKERS = 4
+LOG_STEPS = 1
+AUG_RATIO = 0.0
+BALANCED_LABEL_COUNT = 200
+
 RESAMPLE_SPACING = 1.0
 TEST_RESAMPLE_SPACING = 1.0
 RESAMPLE_SIZE = (80, 80, 80)

@@ -5,7 +5,9 @@ dram_tpu/configs/st_dram_ref_att.py (the reference
 exp_settings/st_dram_ref_att.py): the published DC3D widths and the
 stencil-attention (`at_*`) settings, chunk size, batch, loss, optimizer,
 scheduler, initializer, the wide -1000..-700 HU window, compute dtype and
-seed. Method names resolve inside the port
+seed, and the epoch loop's settings (epochs, validation and checkpoint
+cadence, loader threads, augmentation ratio, balanced chunks per label,
+the training and validation splits). Method names resolve inside the port
 (dram_tpu_torch.configs.get_callable_by_name). The runner and
 inference settings (paths under DRAM_DATA_ROOT and DRAM_OUTPUT_ROOT,
 checkpoint reload, resampling, pad value, logging) are those of
@@ -23,6 +25,8 @@ RELOAD_DICT_LIST = ["model"]
 
 DB_PATH = _ROOT
 TEST_CSV = f"{_ROOT}/test.csv"
+TRAIN_CSV = f"{_ROOT}/wss_train.csv"
+VALID_CSV = f"{_ROOT}/val.csv"
 DEBUG_PATH = f"{_OUT}/test_cases/"
 MODEL_ROOT_PATH = f"{_OUT}/models/"
 
@@ -33,6 +37,16 @@ EXP_NAME = "st_dram_ref_rw"
 MODEL_NAME = "DC3DATGeneric"
 
 RESAMPLE_MODE = "fixed_size"
+
+# the epoch loop (train/chunk_train.py)
+NUM_EPOCHS = 300
+VAL_EPOCHS = 10
+STATE_EPOCHS = 10
+NUM_WORKERS = 4
+LOG_STEPS = 1
+AUG_RATIO = 0.0
+BALANCED_LABEL_COUNT = 200
+
 RESAMPLE_SPACING = 1.0
 TEST_RESAMPLE_SPACING = 1.0
 RESAMPLE_SIZE = (80, 80, 80)

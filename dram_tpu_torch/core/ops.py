@@ -4,7 +4,8 @@ of the losses.
 
 Port of dram_tpu/core/ops.py (`windowing` :24, `otsu_threshold_u8` :89,
 `otsu_threshold_from_hist` :133, `otsu_threshold_u8_np` :153,
-`binary_cam_threshold` :174, `masked_mean` :213, `gsum` :219,
+`binary_cam_threshold` :174, `pooling_dense_features` :197,
+`masked_mean` :213, `gsum` :219,
 `packbits_u8` :302, `unpackbits_u8_dev` :317, `unpackbits_np` :329) and
 its host twins of the inference engine (`windowing_np` :39,
 `binary_cam_np` :160, `find_crops_np` :238). The TPU's one-hot-matmul
@@ -147,6 +148,22 @@ def binary_cam_threshold(values01, mask=None, scaler=1.0, from_span=(0, 1)):
     th, single = _otsu_u8(w, mask)
     th = torch.where(single, th, torch.clamp(th * scaler, max=255.0))
     return th.to(torch.float32) / 255.0
+
+
+def pooling_dense_features(dense_outs, lungs=None, pooling_method="avg"):
+    """Pool dense logits (B, D, H, W, C) to (B, C): "global_avg" /
+    "global_max" over every voxel, "avg" (the default) the mean within
+    `lungs` (B, D, H, W, 1)."""
+    if pooling_method == "global_avg":
+        return dense_outs.mean(dim=(1, 2, 3))
+    if pooling_method == "global_max":
+        return dense_outs.amax(dim=(1, 2, 3))
+    lungs = lungs.to(dense_outs.dtype)
+    num = (dense_outs * lungs).sum(dim=(1, 2, 3))
+    den = lungs.sum(dim=(1, 2, 3)) * torch.ones(
+        dense_outs.shape[-1], dtype=dense_outs.dtype,
+        device=dense_outs.device)
+    return num / den
 
 
 def masked_mean(x, mask, dims):

@@ -31,7 +31,6 @@ Scan-level sharding is not ported (ROADMAP Queue 1 item 5).
 from __future__ import annotations
 
 import csv
-import math
 import os
 import time
 import traceback
@@ -48,7 +47,7 @@ from ..data.hostprep import prep_scan
 from ..data.io import write_array_to_mha_itk
 from ..losses.interval_reg import ratio_to_label
 from ..train.runner import JobRunner
-from ..utils import AverageMeter
+from ..utils import AverageMeter, write_records
 from ..viz import (draw_mask_tile_singleview_heatmap,
                    plot_confusion_matrix_from_data)
 from .fast import FastScanPipeline, prep_scan_chunks
@@ -62,26 +61,6 @@ def _np_metrics(pred, target, smooth=1e-5):
     iou = (inter + smooth) / (union + smooth)
     dice = (2.0 * inter + smooth) / (pred.sum() + target.sum() + smooth)
     return float(iou), float(dice)
-
-
-def _csv_value(v):
-    """A records.csv cell as pandas writes it: NaN as an empty cell."""
-    if isinstance(v, float) and math.isnan(v):
-        return ""
-    return v
-
-
-def _write_records(path, rows):
-    """records.csv: a "uid" column, then the other columns in the order
-    they first appear."""
-    fields = ["uid"]
-    for row in rows:
-        fields += [k for k in row if k not in fields]
-    with open(path, "wt", newline="") as fp:
-        w = csv.DictWriter(fp, fieldnames=fields, restval="")
-        w.writeheader()
-        w.writerows({k: _csv_value(v) for k, v in row.items()}
-                    for row in rows)
 
 
 class LesionSegTest:
@@ -479,7 +458,7 @@ class LesionSegTest:
                     scan_timer.update(dt)
                     rows.append(row)
                     if scan_idx % 5 == 0 or scan_idx == n - 1:
-                        _write_records(rec_file, rows)
+                        write_records(rec_file, rows, "uid")
                         n_written = len(rows)
                     self.logger.info(f"Finished {scan_idx} ({uid}) "
                                      f"in {dt:.2f}s.")
@@ -488,7 +467,7 @@ class LesionSegTest:
                                       f"({uid}): {traceback.format_exc()}")
         if len(rows) > n_written:
             # the rows since the last write, when the last scan failed
-            _write_records(rec_file, rows)
+            write_records(rec_file, rows, "uid")
 
         if all_cls_targets:
             try:

@@ -9,7 +9,8 @@ Port of dram_tpu/infer/fast.py:
   (`forward_resize_weights` :89, `backward_resize_weights` :109), the five
   windowed chunks as bf16 bits, packed lobe masks and the packed
   intensity post-rule candidate;
-* device, the chunk wire (`FastScanPipeline.process_chunks` :919):
+* device, the chunk wire (`FastScanPipeline.process_chunks` :919, and
+  the training validation's `process_chunks_val` :849):
   `stage2pre` (:684) unpacks the chunks and lobe masks and nearest-resizes
   the masks to the chunk grid; `stage2model` (:711) runs the model on the
   (5, 80, 80, 80) batch and the per-lobe lesion ratio; `stage2post` (:736)
@@ -597,6 +598,20 @@ class FastScanPipeline:
         res["stage_ms"] = {"pre": (t1 - t0) * 1e3, "model": (t2 - t1) * 1e3,
                            "post": (t3 - t2) * 1e3}
         return res
+
+    def process_chunks_val(self, prepc):
+        """The training validation's forward on the chunk wire: stage2pre
+        and stage2model as in process_chunks, then the validation
+        epilogue: the refined head's sigmoid resized back to the bucket,
+        summed within each present lobe's mask. Returns the scan's
+        predicted lesion ratio, sum / max(voxels, 1), as a float. The
+        model runs as it is set (the caller puts it in eval mode)."""
+        x80, l80f, lmask = self.stage2pre(prepc)
+        out, _ = self.stage2model(x80, l80f)
+        probs = gather_resize(torch.sigmoid(out), self._tables(prepc["bw"]))
+        m = lmask.float() * self._put(np.asarray(
+            prepc["present"], np.float32))[:, None, None, None]
+        return float((probs * m).sum()) / max(float(m.sum()), 1.0)
 
     # -- scan wires: stage 1 -------------------------------------------
     def _decode_lobe(self, packed_lobe, n_voxels, iso_shape):

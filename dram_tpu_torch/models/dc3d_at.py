@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..core import ops
 from ..core.resample import resize3d
 from .blocks import BatchNorm, Conv1x1
 from .pcm import PCM
@@ -44,8 +45,9 @@ class DC3DATGeneric(nn.Module):
                  at_merge_type="scaled_dot_product_relu",
                  at_self_loop=False, at_layers=(-1, 0, 1),
                  at_connectivity=2, stacking=3, dtype=torch.float32,
-                 fused_stack=True):
+                 fused_stack=True, pooling_method="avg"):
         super().__init__()
+        self.pooling_method = pooling_method
         self.n_layers = n_layers
         self.at_layers = tuple(at_layers)
         self.at_spatial_size = tuple(at_spatial_size)
@@ -94,6 +96,10 @@ class DC3DATGeneric(nn.Module):
         cam = resize3d(dense, self.at_spatial_size)
         refined = self.attention_module(cam, features)
         return resize3d(refined, dense.shape[1:4]).float()
+
+    def pooling_dense_features(self, dense_outs, lungs, pooling_method=None):
+        return ops.pooling_dense_features(
+            dense_outs, lungs, pooling_method or self.pooling_method)
 
     def forward(self, x):
         """x: (B, D, H, W, 1) -> (dense, refined) f32 logits."""

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..core import ops
 from ..core.resample import resize3d
 from .blocks import Conv1x1, ConvBlock5d, ConvPoolBlock5d, UpsampleConvBlock5d
 
@@ -23,8 +24,9 @@ class DC3D(nn.Module):
                  base_ch_list=(32, 64, 128, 256, 256, 128, 64),
                  end_ch_list=(64, 128, 256, 512, 256, 128, 64),
                  out_ch=1, stacking=0, dtype=torch.float32,
-                 fused_stack=True):
+                 fused_stack=True, pooling_method="avg"):
         super().__init__()
+        self.pooling_method = pooling_method
         self.n_layers = n_layers
         self.dtype = dtype
         n, end = n_layers, list(end_ch_list)
@@ -66,6 +68,10 @@ class DC3D(nn.Module):
     def top(self, outs, spatial_size):
         dense = resize3d(self.top_layer(outs), spatial_size)
         return dense.float()
+
+    def pooling_dense_features(self, dense_outs, lungs, pooling_method=None):
+        return ops.pooling_dense_features(
+            dense_outs, lungs, pooling_method or self.pooling_method)
 
     def forward(self, x):
         """x: (B, D, H, W, 1) -> (dense, dense) f32 logits."""

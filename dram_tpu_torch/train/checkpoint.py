@@ -7,6 +7,15 @@ by the port's own codec (weights.msgpack_unpackb / msgpack_packb), so
 that dram_tpu's checkpoints load in the port and the port's in dram_tpu.
 Trees hold flax names and layouts: weights.to_jax maps a model's
 state_dict into one, weights.load_into back.
+
+`adam_state_tree` / `load_adam_state` map torch.optim.Adam's state to and
+from the tree that flax.serialization.to_state_dict makes of the JAX
+trainer's optax `inject_hyperparams(adam)` state (its checkpoints'
+"optimizer" entry): `count` (int32), `hyperparams` (learning_rate, b1,
+b2, eps, eps_root as f32 scalars), `hyperparams_states` {} and
+`inner_state` {"0": {count, mu, nu}, "1": {}}, with mu and nu in the
+parameters' flax names and layouts. Torch's per-parameter step,
+exp_avg and exp_avg_sq are optax's count, mu and nu.
 """
 
 from __future__ import annotations
@@ -15,8 +24,9 @@ import glob
 import os
 
 import numpy as np
+import torch
 
-from ..weights import msgpack_packb, msgpack_unpackb
+from ..weights import from_jax, msgpack_packb, msgpack_unpackb, to_jax
 
 
 def save_checkpoint(path, tree):
@@ -92,3 +102,80 @@ def tolerant_merge(current, saved, ignored_keys=(), overwrite=False,
         else:
             out[k] = sv
     return out
+
+
+def _named_params(optimizer, model):
+    """(name, parameter) of `model` in the order of the optimizer's one
+    parameter group, which must hold exactly the model's parameters."""
+    named = list(model.named_parameters())
+    groups = optimizer.param_groups
+    if len(groups) != 1 or len(groups[0]["params"]) != len(named) or any(
+            p is not q for p, (_, q) in zip(groups[0]["params"], named)):
+        raise ValueError("the optimizer must hold the model's parameters "
+                         "in one group, in the model's order")
+    return named
+
+
+def adam_state_tree(optimizer, model):
+    """torch.optim.Adam's state over `model`'s parameters -> the flax
+    state dict of optax's inject_hyperparams(adam) state (numpy)."""
+    named = _named_params(optimizer, model)
+    group = optimizer.param_groups[0]
+    mu, nu, count = {}, {}, 0
+    for name, p in named:
+        st = optimizer.state.get(p) or {}
+        mu[name] = st.get("exp_avg", torch.zeros_like(p))
+        nu[name] = st.get("exp_avg_sq", torch.zeros_like(p))
+        count = int(st["step"]) if "step" in st else 0
+    mu_tree, nu_tree = to_jax(mu)[0], to_jax(nu)[0]
+    b1, b2 = group["betas"]
+    f32 = np.float32
+    return {"count": np.asarray(count, np.int32),
+            "hyperparams": {"learning_rate": np.asarray(group["lr"], f32),
+                            "b1": np.asarray(b1, f32),
+                            "b2": np.asarray(b2, f32),
+                            "eps": np.asarray(group["eps"], f32),
+                            "eps_root": np.asarray(0.0, f32)},
+            "hyperparams_states": {},
+            "inner_state": {"0": {"count": np.asarray(count, np.int32),
+                                  "mu": mu_tree, "nu": nu_tree},
+                            "1": {}}}
+
+
+def load_adam_state(optimizer, model, tree):
+    """Load the tree of adam_state_tree (or one that the JAX trainer
+    saved) into torch.optim.Adam over `model`'s parameters: step, exp_avg
+    and exp_avg_sq per parameter; lr, betas and eps from the
+    hyperparameters where they differ from the group's beyond f32
+    rounding. Raises on a tree of other names or shapes."""
+    named = _named_params(optimizer, model)
+    inner = tree["inner_state"]["0"]
+    mu, nu = from_jax(inner["mu"], {}), from_jax(inner["nu"], {})
+    names = [n for n, _ in named]
+    if sorted(mu) != sorted(names) or sorted(nu) != sorted(names):
+        raise ValueError("the optimizer state's parameters differ from the "
+                         "model's")
+    step = float(np.asarray(inner["count"]))
+    state = {}
+    for i, (name, p) in enumerate(named):
+        if mu[name].shape != p.shape or nu[name].shape != p.shape:
+            raise ValueError(f"optimizer state of {name}: shape "
+                             f"{tuple(mu[name].shape)}, parameter "
+                             f"{tuple(p.shape)}")
+        state[i] = {"step": torch.tensor(step, dtype=torch.float32),
+                    "exp_avg": mu[name].to(p.dtype),
+                    "exp_avg_sq": nu[name].to(p.dtype)}
+    sd = optimizer.state_dict()
+    group = dict(sd["param_groups"][0])
+    hyper = tree.get("hyperparams", {})
+
+    def pick(current, key):
+        if key not in hyper:
+            return current
+        saved = float(np.asarray(hyper[key]))
+        return current if np.float32(current) == np.float32(saved) else saved
+    group["lr"] = pick(group["lr"], "learning_rate")
+    group["betas"] = (pick(group["betas"][0], "b1"),
+                      pick(group["betas"][1], "b2"))
+    group["eps"] = pick(group["eps"], "eps")
+    optimizer.load_state_dict({"state": state, "param_groups": [group]})

@@ -1,14 +1,22 @@
-"""Runner scaffolding: settings, logging, output paths, the model and its
-reload from a checkpoint.
+"""Runner scaffolding: settings, logging, output paths, the model, its
+training objects, checkpoints and their reload.
 
-Port of the part of dram_tpu/train/trainer.py:JobRunner (:213) that the
-inference engine uses: the settings, `logging.config.dictConfig(LOGGING)`
-(basicConfig without one), `exp_path` / `debug_path` and their
-settings.txt, `init` (the model of MODEL through build_model, with
-COMPUTE_DTYPE activations, initialised from RANDOM_SEED by an explicit
-torch.Generator) and `reload_model_from_cache` (:602). The optimizer, the
-scheduler and the epoch loop belong to the trainer (ROADMAP Queue 1 item
-3): a checkpoint's optimizer and scheduler states are skipped.
+Port of dram_tpu/train/trainer.py:JobRunner (:213-640) on one device:
+the settings, `logging.config.dictConfig(LOGGING)` (basicConfig without
+one), `exp_path` / `debug_path` and their settings.txt; `init` (the
+model of MODEL through build_model, with COMPUTE_DTYPE activations,
+initialised from RANDOM_SEED by an explicit torch.Generator);
+`init_training` (the optimizer of OPTIMIZER, the ExponentialLR of
+SCHEDULER, the loss of LOSS_FUNC, the TrainStep and the SummaryWriter);
+`print_model_parameters` (:435), `update_model_state` / `save_model`
+(`{epoch}.ckpt`, :580-600) and `reload_model_from_cache` (:602; model,
+optimizer, scheduler and metrics). One nn.Module serves training and
+validation: the JAX runner's two flax modules over one parameter tree
+(:303-313) become its train and eval modes, so no weights are copied.
+
+The multi-device options raise, naming their ROADMAP Queue 1 item:
+optimizer parameter groups (item 4), DCN_MESH_SIZE, DP_BATCH_MODE other
+than "pad" and PER_PROCESS_LOADING (item 5).
 """
 
 from __future__ import annotations
@@ -17,13 +25,16 @@ import logging
 import logging.config
 import os
 
+import numpy as np
 import torch
 
 from .. import require_cuda, weights
 from ..configs import get_callable_by_name
 from ..utils import Settings, get_value_recursively
-from .checkpoint import load_checkpoint, newest_checkpoint, tolerant_merge
-from .trainer import build_model
+from ..viz import SummaryWriter
+from .checkpoint import (adam_state_tree, load_adam_state, load_checkpoint,
+                         newest_checkpoint, save_checkpoint, tolerant_merge)
+from .trainer import ExponentialLR, TrainStep, build_model
 
 
 class JobRunner:
@@ -55,6 +66,7 @@ class JobRunner:
         self.model_metrics_save_dict = {}
         self.epoch_n = 0
         self.current_iteration = 0
+        self.optimizer = self.scheduler = None
         with open(self.exp_path + "/settings.txt", "wt", newline="") as fp:
             fp.write(str(s))
 
@@ -72,12 +84,104 @@ class JobRunner:
         init_cls(**init_cfg)(model, gen)
         self.model = model.to(self.device).eval()
 
+    def init_training(self):
+        """After init: the optimizer, scheduler (its lr written into the
+        optimizer), loss, TrainStep, train wire and SummaryWriter."""
+        s = self.settings
+        opt_cfg = dict(s.OPTIMIZER)
+        if opt_cfg.pop("groups", None):
+            raise NotImplementedError(
+                "OPTIMIZER['groups'] (per-parameter-group optimizers) is not "
+                "ported (ROADMAP Queue 1 item 4)")
+        for name, off in (("DCN_MESH_SIZE", None),
+                          ("PER_PROCESS_LOADING", None)):
+            if getattr(s, name, off) not in (off, False):
+                raise NotImplementedError(
+                    f"{name} (multi-device training) is not ported (ROADMAP "
+                    "Queue 1 item 5)")
+        mode = getattr(s, "DP_BATCH_MODE", "pad")
+        if mode != "pad":
+            raise NotImplementedError(
+                f"DP_BATCH_MODE={mode!r}: one device runs the reference "
+                "global batch ('pad'); data parallelism is ROADMAP Queue 1 "
+                "item 5")
+        self.train_wire = str(getattr(s, "TRAIN_WIRE", "f32"))
+        if self.train_wire not in ("f32", "u16"):
+            raise ValueError(f"TRAIN_WIRE must be 'f32' or 'u16', "
+                             f"got {self.train_wire!r}")
+        self.loader_batch_size = int(getattr(s, "TRAIN_BATCH_SIZE", 1))
+
+        opt_fn = get_callable_by_name(opt_cfg.pop("method"))
+        self.optimizer = opt_fn(self.model.parameters(), **opt_cfg)
+        sched_cfg = dict(getattr(s, "SCHEDULER", {
+            "method": "torch.optim.lr_scheduler.ExponentialLR",
+            "gamma": 0.9}))
+        if get_callable_by_name(sched_cfg.pop("method")) is not ExponentialLR:
+            raise NotImplementedError("only SCHEDULER ExponentialLR is ported")
+        self.scheduler = ExponentialLR(self.optimizer.param_groups[0]["lr"],
+                                       **sched_cfg)
+        self.scheduler.apply(self.optimizer)
+        loss_cfg = dict(s.LOSS_FUNC)
+        self.loss_func = get_callable_by_name(loss_cfg.pop("method"))(
+            **loss_cfg)
+        self.train_step = TrainStep(self.model, self.loss_func,
+                                    self.optimizer, s.LOSS_FACTORS)
+        if getattr(s, "USE_GRAD_SCALER", False):
+            self.logger.info("USE_GRAD_SCALER requested: bf16 keeps the f32 "
+                             "exponent range, no loss scaling; ignored")
+        self.summary_writer = SummaryWriter(
+            log_dir=os.path.join(self.exp_path, "summary"))
+
+    def print_model_parameters(self, iteration):
+        """Per-parameter histogram and mean / std scalars, under the flax
+        names joined by "_"."""
+        params, _ = weights.to_jax(dict(self.model.named_parameters()))
+
+        def flat(tree, prefix=""):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    yield from flat(v, f"{prefix}{k}_")
+                else:
+                    yield prefix + k, v
+        for name, arr in flat(params):
+            self.summary_writer.add_histogram(name, arr, iteration)
+            self.summary_writer.add_scalar(f"mean_{name}", float(arr.mean()),
+                                           iteration)
+            self.summary_writer.add_scalar(f"std_{name}", float(arr.std()),
+                                           iteration)
+
+    # -- checkpoints ---------------------------------------------------
+    def model_state_tree(self):
+        params, batch_stats = weights.to_jax(self.model.state_dict())
+        return {"params": params, "batch_stats": batch_stats}
+
+    def update_model_state(self, **kwargs):
+        """The checkpoint tree, in the JAX trainer's layout: epoch,
+        iteration, model, optimizer (optax's adam state), scheduler and
+        metrics."""
+        state = {"epoch": self.epoch_n,
+                 "iteration": self.current_iteration,
+                 "model": self.model_state_tree(),
+                 "optimizer": adam_state_tree(self.optimizer, self.model),
+                 "scheduler": self.scheduler.state_dict(),
+                 "metrics": dict(self.model_metrics_save_dict)}
+        state.update(kwargs)
+        return state
+
+    def save_model(self, **kwargs):
+        path = os.path.join(self.exp_path, f"{self.epoch_n}.ckpt")
+        save_checkpoint(path, self.update_model_state(**kwargs))
+        self.logger.info(f"saved model into {path}.")
+        return path
+
     def reload_model_from_cache(self):
         """With RELOAD_CHECKPOINT, load RELOAD_CHECKPOINT_PATH (else the
         newest checkpoint of exp_path; raises when there is none): the
-        entries of RELOAD_DICT_LIST, the model's through tolerant_merge
-        (saved arrays of another shape, or missing, keep the model's),
-        and the epoch and iteration."""
+        entries of RELOAD_DICT_LIST ("model" through tolerant_merge: saved
+        arrays of another shape, or missing, keep the model's;
+        "optimizer" into the Adam of init_training; "metrics"), the
+        scheduler's state whenever the checkpoint has one and a scheduler
+        exists, and the epoch and iteration."""
         s = self.settings
         if not getattr(s, "RELOAD_CHECKPOINT", False):
             self.epoch_n = 0
@@ -93,18 +197,24 @@ class JobRunner:
 
         reload_keys = getattr(s, "RELOAD_DICT_LIST", ["model"])
         if "model" in reload_keys and "model" in saved:
-            params, batch_stats = weights.to_jax(self.model.state_dict())
-            merged = tolerant_merge(
-                {"params": params, "batch_stats": batch_stats},
-                saved["model"], log=self.logger.info)
+            merged = tolerant_merge(self.model_state_tree(), saved["model"],
+                                    log=self.logger.info)
             weights.load_into(self.model, merged["params"],
                               merged["batch_stats"])
             self.logger.info("=> loaded model")
-        for key in ("optimizer", "scheduler"):
-            if key in saved:
-                self.logger.info(f"skipping the checkpoint's {key} state: "
-                                 "the port's trainer does not reload it yet")
+        if "optimizer" in reload_keys and "optimizer" in saved \
+                and self.optimizer is not None:
+            try:
+                load_adam_state(self.optimizer, self.model,
+                                saved["optimizer"])
+                self.logger.info("=> loaded optimizer")
+            except (KeyError, ValueError) as e:
+                self.logger.warning(f"optimizer reload failed ({e}); fresh "
+                                    "state")
         if "metrics" in reload_keys and "metrics" in saved:
             self.model_metrics_save_dict.update(saved["metrics"])
-        self.epoch_n = int(saved.get("epoch", 0))
-        self.current_iteration = int(saved.get("iteration", 0))
+        if "scheduler" in saved and self.scheduler is not None:
+            self.scheduler.load_state_dict(saved["scheduler"])
+            self.scheduler.apply(self.optimizer)
+        self.epoch_n = int(np.asarray(saved.get("epoch", 0)))
+        self.current_iteration = int(np.asarray(saved.get("iteration", 0)))

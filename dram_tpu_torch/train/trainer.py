@@ -3,18 +3,16 @@
 Port of the single-device core of dram_tpu/train/trainer.py: the wire
 (`unpack_image_wire` :88, `pack_train_batch` :107, `MaskWireLatch` :61),
 the optimizer and scheduler registry targets (`adam` :164,
-`ExponentialLR` :177) and the body of `_build_train_step` / `train_step`
-(:483-578) as `TrainStep`: the loss drives the model through a `model_fn`
-closure, the objective is sum(factor * loss) with the arity check of
-:533-542, then the backward through the port's kernels, the Adam step and
-the BatchNorm running-stat update (done by the model's train-mode
-forward). `train_steps` builds model, initializer or weights, optimizer
-and loss from a settings module (dram_tpu_torch/configs) and runs a few
-steps.
-
-Not ported yet (ROADMAP Queue 1): the data layer, validation, the epoch
-loop (which saves the checkpoints that train/checkpoint.py writes and
-train/runner.py reloads) and the multi-device mesh.
+`ExponentialLR` :177 with its state :192-200), `fix_random_seeds` (:206)
+and the body of `_build_train_step` / `train_step` (:483-578) as
+`TrainStep`: the loss drives the model through a `model_fn` closure, the
+objective is sum(factor * loss) with the arity check of :533-542, then
+the backward through the port's kernels, the Adam step and the BatchNorm
+running-stat update (done by the model's train-mode forward).
+`train_steps` builds model, initializer or weights, optimizer and loss
+from a settings module (dram_tpu_torch/configs) and runs a few steps; the
+epoch loop is train/chunk_train.py. Not ported: the multi-device mesh
+(ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -142,6 +140,24 @@ class ExponentialLR:
         for group in optimizer.param_groups:
             group["lr"] = self.lr
 
+    def state_dict(self):
+        return {"steps": self.steps, "base_lr": self.base_lr,
+                "gamma": self.gamma}
+
+    def load_state_dict(self, d):
+        self.steps = int(d.get("steps", 0))
+        self.base_lr = float(d.get("base_lr", self.base_lr))
+        self.gamma = float(d.get("gamma", self.gamma))
+
+
+def fix_random_seeds(seed):
+    """Seed numpy's, Python's and torch's global generators (the host
+    augmentations draw from numpy's)."""
+    import random
+    np.random.seed(seed)
+    random.seed(seed)
+    torch.manual_seed(seed)
+
 
 # --- the step -------------------------------------------------------------------
 
@@ -183,12 +199,14 @@ class TrainStep:
         self.factors = [float(f) for f in loss_factors]
 
     def __call__(self, images, lobes, lesions, ctss, freq, weights=None,
-                 span=None):
+                 span=None, timed=True):
         """Tensors on the model's device: images (B, D, H, W, 1) f32 or the
         u16 wire with its `span`, lobes and lesions (B, D, H, W, 1),
         ctss (B,) ints, freq (6,) the CTSS frequency map, weights (B,)
         (ones when None). Returns {"losses": (n_losses,) f32, "loss":
-        total, "ms": {"forward", "backward", "optimizer"}, "peak_mib"}."""
+        total, "ms": {"forward", "backward", "optimizer"}, "peak_mib"}.
+        With timed=False nothing waits for the device ("ms" is None):
+        the epoch loop reads the loss a step later."""
         device = images.device
         images = unpack_image_wire(images, span)
         lobes, lesions = lobes.float(), lesions.float()
@@ -219,13 +237,14 @@ class TrainStep:
         clock.mark()
         self.optimizer.step()
         clock.mark()
-        fwd, bwd, opt = clock.spans_ms()
+        ms = None
+        if timed:
+            fwd, bwd, opt = clock.spans_ms()
+            ms = {"forward": fwd, "backward": bwd, "optimizer": opt}
         peak = torch.cuda.max_memory_allocated(device) / 2 ** 20 \
             if device.type == "cuda" else None
         return {"losses": torch.stack([l.detach() for l in losses]),
-                "loss": total.detach(),
-                "ms": {"forward": fwd, "backward": bwd, "optimizer": opt},
-                "peak_mib": peak}
+                "loss": total.detach(), "ms": ms, "peak_mib": peak}
 
 
 # --- building from settings -----------------------------------------------------

@@ -2,7 +2,9 @@
 
 Port of dram_tpu/utils.py: `convert_dict_string` (:21), `Settings` (:34),
 the CSV readers `read_csv_in_dict` (:317) and `read_csv_in_dict_double`
-(:329), `get_value_recursively` (:341) and `AverageMeter` (:360).
+(:329), `get_value_recursively` (:341) and `AverageMeter` (:360), and the
+records.csv writer of the runners (`write_records`, the layout pandas
+writes).
 Settings are plain Python modules whose UPPERCASE names become
 attributes; `Settings` also lifts them from an imported settings module
 or a dram_tpu_torch.configs.with_settings namespace, so that a caller can
@@ -13,6 +15,7 @@ from __future__ import annotations
 
 import csv
 import importlib.util
+import math
 import os
 
 
@@ -102,6 +105,27 @@ def read_csv_in_dict_double(csv_file_path, column_keys, fieldnames=None):
             row_dict[tuple(row[k] for k in column_keys)] = row
         field_names = cr.fieldnames
     return row_dict, field_names
+
+
+def _csv_value(v):
+    """A records.csv cell as pandas writes it: NaN as an empty cell."""
+    if isinstance(v, float) and math.isnan(v):
+        return ""
+    return v
+
+
+def write_records(path, rows, first):
+    """Rows (dicts) as a CSV file in the layout pandas' to_csv(index=False)
+    gives a DataFrame built from them: the column `first`, then the other
+    keys in the order they first appear; a missing cell is empty."""
+    fields = [first]
+    for row in rows:
+        fields += [k for k in row if k not in fields]
+    with open(path, "wt", newline="") as fp:
+        w = csv.DictWriter(fp, fieldnames=fields, restval="")
+        w.writeheader()
+        w.writerows({k: _csv_value(v) for k, v in row.items()}
+                    for row in rows)
 
 
 def get_value_recursively(search_dict, field):

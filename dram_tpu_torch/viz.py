@@ -1,18 +1,21 @@
-"""Host-side pictures of the inference engine: the confusion matrix of
-the per-lobe classes and the heatmap screenshot tiles.
+"""Host-side pictures and logs: the confusion matrix of the ordinal
+classes, the screenshot tiles and the scalar logger.
 
 Port of dram_tpu/viz.py (`plot_confusion_matrix_from_data` :25,
 `_zoom_and_pad`, `_pick_slices`, `_write_tile` :100-136,
-`draw_mask_tile_singleview_heatmap` :180): pick `num_slices` evenly
-across the object's extent, blend JET heatmaps over each slice, tile them
-horizontally, pad to 1920 px wide and write a jpg. cv2, matplotlib and
-scipy are imported inside the functions: without cv2 the tiles are
-skipped, and without matplotlib the confusion matrix raises ImportError
-(the engine logs it as a warning).
+`draw_mask_tile_single_view` :138, `draw_mask_tile_singleview_heatmap`
+:180, `SummaryWriter` :223): the tiles pick `num_slices` evenly across
+the object's extent, draw mask contours or blend JET heatmaps over each
+slice, tile them horizontally, pad to 1920 px wide and write a jpg. cv2,
+matplotlib, scipy and tensorboard are imported inside the functions:
+without cv2 the tiles are skipped, without matplotlib the confusion
+matrix raises ImportError (the runners log it as a warning), and without
+tensorboard the SummaryWriter writes JSON lines.
 """
 
 from __future__ import annotations
 
+import json
 import os
 from pathlib import Path
 
@@ -141,6 +144,50 @@ def _write_tile(tiles, output_path, ext):
     _cv2().imwrite(str(out) + f".{ext}", draw)
 
 
+def draw_mask_tile_single_view(image, masks_list, coord_mask, num_slices,
+                               output_path, colors, thickness, ext="jpg",
+                               alpha=0.5, flip_axis=0, zoom_size=360,
+                               coord_axis=1, titles=None):
+    """Contour-overlay tiling (reference utils.py:464-539); does nothing
+    without cv2."""
+    cv2 = _cv2()
+    if cv2 is None:
+        return
+    image = np.asarray(image, np.float32)
+    if flip_axis is not None:
+        image = np.flip(image, flip_axis)
+        coord_mask = np.flip(coord_mask, flip_axis)
+        masks_list = [[np.flip(m, flip_axis) for m in ml] for ml in masks_list]
+    image = _zoom_and_pad(image, zoom_size, coord_axis, 1)
+    coord_mask = _zoom_and_pad(coord_mask.astype(np.uint8), zoom_size,
+                               coord_axis, 0)
+    masks_list = [[_zoom_and_pad(m.astype(np.uint8), zoom_size, coord_axis, 0)
+                   for m in ml] for ml in masks_list]
+    slice_ids = _pick_slices(coord_mask > 0, num_slices, coord_axis)
+    if slice_ids is None:
+        return
+    tiles = []
+    for sid in slice_ids:
+        sl = np.take(image, sid, axis=coord_axis).astype(np.uint8)
+        rows = [np.dstack([sl] * 3)]
+        for gi, ml in enumerate(masks_list):
+            blend = np.dstack([sl] * 3).copy()
+            for m, color, thick in zip(ml, colors, thickness):
+                msl = np.take(m, sid, axis=coord_axis).astype(np.uint8)
+                cnts, _ = cv2.findContours(msl, cv2.RETR_TREE,
+                                           cv2.CHAIN_APPROX_SIMPLE)
+                cv2.drawContours(blend, cnts, -1, color, thick)
+            rendered = (np.dstack([sl] * 3) * (1 - alpha) + blend * alpha) \
+                .astype(np.uint8)
+            if titles:
+                cv2.putText(rendered, titles[gi], (10, 10),
+                            cv2.FONT_HERSHEY_SIMPLEX, 0.5, (0, 255, 0), 1,
+                            cv2.LINE_AA)
+            rows.append(rendered)
+        tiles.append(np.vstack(rows))
+    _write_tile(tiles, output_path, ext)
+
+
 def draw_mask_tile_singleview_heatmap(image, masks_list, coord_mask,
                                       num_slices, output_path, ext="jpg",
                                       alpha=0.5, flip_axis=0, zoom_size=360,
@@ -184,3 +231,59 @@ def draw_mask_tile_singleview_heatmap(image, masks_list, coord_mask,
             rows.append(blend)
         tiles.append(np.vstack(rows))
     _write_tile(tiles, output_path, ext)
+
+
+class SummaryWriter:
+    """Scalar and histogram logger under `log_dir`: tensorboard's
+    SummaryWriter where torch.utils.tensorboard imports, else JSON lines
+    in scalars.jsonl ({"tag", "step", name: value, ...}) and
+    histograms.jsonl ({"tag", "step", "count", "quantiles": the 11
+    deciles})."""
+
+    def __init__(self, log_dir):
+        self.log_dir = log_dir
+        os.makedirs(log_dir, exist_ok=True)
+        self._tb = None
+        self._fp = self._hfp = None
+        try:
+            from torch.utils.tensorboard import SummaryWriter as TB
+            self._tb = TB(log_dir=log_dir)
+        except Exception:
+            pass
+
+    def _jsonl(self, fp, name, row):
+        if fp is None:
+            fp = open(os.path.join(self.log_dir, name), "at")
+        fp.write(json.dumps(row) + "\n")
+        fp.flush()
+        return fp
+
+    def add_scalars(self, tag, scalars, global_step):
+        if self._tb is not None:
+            self._tb.add_scalars(tag, scalars, global_step)
+            return
+        self._fp = self._jsonl(self._fp, "scalars.jsonl", {
+            "tag": tag, "step": global_step,
+            **{k: float(v) for k, v in scalars.items()}})
+
+    def add_scalar(self, tag, value, global_step):
+        self.add_scalars(tag, {tag: value}, global_step)
+
+    def add_histogram(self, tag, values, global_step):
+        values = np.asarray(values)
+        if self._tb is not None:
+            self._tb.add_histogram(tag, values, global_step)
+            return
+        q = np.quantile(values.astype(np.float64).reshape(-1),
+                        np.linspace(0.0, 1.0, 11))
+        self._hfp = self._jsonl(self._hfp, "histograms.jsonl", {
+            "tag": tag, "step": global_step, "count": int(values.size),
+            "quantiles": [float(v) for v in q]})
+
+    def close(self):
+        if self._tb is not None:
+            self._tb.close()
+        for fp in (self._fp, self._hfp):
+            if fp is not None:
+                fp.close()
+        self._fp = self._hfp = None

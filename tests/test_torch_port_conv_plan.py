@@ -36,6 +36,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HALO_Y = cs.BOX_Y + 2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The emulation is thousands of small tensor operations: one torch
+    thread each, so that six test workers do not each run eight threads
+    on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _chip_smoke():
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_conv_shapes", os.path.join(ROOT, "chip_smoke.py"))

@@ -8,10 +8,8 @@ dram_tpu's runner draws from RANDOM_SEED, the top conv scaled by 100 and
 its bias lowered by 1, so that the logits straddle 0 by about +-2, every
 lobe predicts a class >= 1 and the masks are not empty.
 Then it runs LesionSegTest of both packages
-on both paths (fast and host-stitch) over the same files. On the fast path
-both run their C++ host preps, which give the same bits on one host; on
-the host-stitch path dram_tpu's C++ is switched off, since its transforms
-resample with it where the port's use NumPy.
+on both paths (fast and host-stitch) over the same files. Both run their
+C++ host preps and resamples, which give the same bits on one host.
 
 Tolerances: records.csv's iou, dice, iou_post and dice_post within 5e-3
 (the masks may differ by a Dice of 0.005, the repo's mask gate; on these
@@ -140,9 +138,6 @@ def world(tmp_path_factory):
         jckpt.save_checkpoint(checkpoint, {"model": tree, "epoch": 1,
                                            "iteration": 10})
         for path, fast in (("fast", True), ("stitch", False)):
-            if not fast:
-                mp.setattr(dram_tpu.native, "hostprep_native", None,
-                           raising=False)
             je = JaxLesionSegTest(settings_module=JaxSettings(sfile),
                                   output_path=f"{out}/jax_{path}",
                                   use_fast_path=fast)

@@ -1,9 +1,10 @@
 """Guards of the port's boundaries: dram_tpu_torch and chip_smoke.py import
-without jax, flax, msgpack, ml_dtypes, scipy, pandas, matplotlib, cv2 or
-dram_tpu; no module of the port names a file under dram_tpu/; the CUDA
-sources
-include no PyTorch, pybind11 or CUTLASS header; a CUDA request without a
-GPU raises; chip_smoke.py fails without a GPU and outside the repo."""
+without jax, flax, msgpack, ml_dtypes, scipy, pandas, matplotlib, cv2,
+sklearn, tensorboard or dram_tpu; no module of the port names a file
+under dram_tpu/; the CUDA sources include no PyTorch, pybind11 or
+CUTLASS header; a CUDA request without a GPU raises, from the API and
+from the training CLI; chip_smoke.py fails without a GPU and outside the
+repo."""
 
 import os
 import re
@@ -20,7 +21,8 @@ CSRC = os.path.join(REPO, "dram_tpu_torch", "kernels", "csrc")
 BLOCKER = """
 import sys
 BLOCKED = {"jax", "jaxlib", "flax", "msgpack", "ml_dtypes", "scipy",
-           "pandas", "matplotlib", "cv2", "dram_tpu"}
+           "pandas", "matplotlib", "cv2", "sklearn", "tensorboard",
+           "dram_tpu"}
 class _Blocker:
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:
@@ -50,11 +52,15 @@ assert {"dram_tpu_torch.train.trainer", "dram_tpu_torch.losses.refine",
         "dram_tpu_torch.data.datasets", "dram_tpu_torch.data.transforms",
         "dram_tpu_torch.train.checkpoint", "dram_tpu_torch.train.runner",
         "dram_tpu_torch.viz", "dram_tpu_torch.process_pipeline",
-        "dram_tpu_torch.native"} <= set(names)
+        "dram_tpu_torch.native", "dram_tpu_torch.data.sampler",
+        "dram_tpu_torch.data.pipeline", "dram_tpu_torch.data.prepare_data",
+        "dram_tpu_torch.train.__main__", "dram_tpu_torch.train.chunk_train",
+        "dram_tpu_torch.train.torch_import",
+        "dram_tpu_torch.configs.st_copd_subtyping"} <= set(names)
 print(len(names))
 """)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 41
+    assert int(r.stdout.split()[-1]) >= 49
 
 
 def test_no_module_names_a_dram_tpu_file():
@@ -124,6 +130,17 @@ def test_require_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         require_cuda("cuda")
+
+
+def test_train_cli_cuda_without_gpu_raises():
+    """python3 -m dram_tpu_torch.train asks for CUDA by default and exits
+    with the error when there is none, before it reads any data."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = subprocess.run([sys.executable, "-m", "dram_tpu_torch.train"],
+                       cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert "no CUDA device" in r.stderr
 
 
 def test_chip_smoke_fails_without_gpu():

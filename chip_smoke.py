@@ -146,6 +146,40 @@ traceback and a non-zero exit:
    trains epochs 1 and 2 (the loop restarts the checkpoint's epoch, as
    dram_tpu's does) and writes 2.ckpt.
 
+19. pipeline generic (after 10's golden): variant A, the flagship with a
+   k = 5, connectivity-2, self-loop PCM (98 offsets, asymmetric, halo 2)
+   of widths F = 16, G = 4 (a 33-channel PCM input), the trained
+   backbone under fresh tap heads and PCM (HeNorm from RANDOM_SEED): the
+   scan of 4 through process_chunks with the kernels (the generic
+   attention forward, not the plane ring) and with the plain versions,
+   pred Dice >= 0.99.
+20. generic attention (after 14): ptxas's report of the generic
+   stencil-attention kernels (csrc/stencil_attention_generic.cu), then
+   each pass at every case of GENERIC_CASES (k = 3 connectivity 1 and 3,
+   k = 5 connectivity 2, k = 7 connectivity 1, all with a self loop;
+   widths (16, 4), (33, 1) and (8, 8); 64^3 on a 1/8 grid; batch 2, and
+   variant A's batch 10): against its plain version (1e-4 of the
+   largest), launched twice bitwise equal, timed per launch over 10 back
+   to back beside its bound; at batch 2 StencilAttentionFunction's
+   gradients against autograd through the plain forward (1e-4).
+21. train generic / train geo / train variant b (after 10's unfused
+   training, each with its plain phase and the train gate, the same
+   start and generator seeds on both sides): variant A's 3 steps from
+   the trained backbone (the generic kernels, not the plane ring); its
+   second PCM with the positional encoding (merge type
+   scaled_dot_product_geo_relu, p_enc_dim 24, geo_f_dim 8), one step on
+   the plain PCM path; variant B, 'in' norms, PReLU, dropout 0.1, HeNorm
+   fan_out, AdamW (weight decay 1e-4) with an attention_module group at
+   lr 1e-3 and IntRegAffRefineLoss with the rescale pool 64 / 80 / 96
+   (reseeded a step as the epoch loop does), 3 steps from INITIALIZER on
+   the unfused stack's kernels, its peak MiB.
+22. variant b epochs (after 18): the training CLI's main on variant B
+   over the dataset of 16, one epoch (validated, 0.ckpt, the optimizer
+   in dram_tpu's multi_transform layout, each group's lr decayed), then
+   a resume whose optimizer state equals 0.ckpt's bitwise, training
+   epochs 0 and 1 (the checkpoint's epoch restarts) and writing 1.ckpt;
+   per epoch the times and peak MiB.
+
 Prints a `{"kernels": [...]}` JSON line and, last, the device line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before it.
 """
@@ -169,8 +203,8 @@ import torch
 import torch.nn.functional as F
 
 from dram_tpu_torch import golden, native, weights
-from dram_tpu_torch.configs import (st_dram_ref, st_dram_ref_att,
-                                    with_settings)
+from dram_tpu_torch.configs import (get_callable_by_name, st_dram_ref,
+                                    st_dram_ref_att, with_settings)
 from dram_tpu_torch.core.ops import binary_cam_np
 from dram_tpu_torch.data.datasets import RadboudCOVIDLobeVesselChunk
 from dram_tpu_torch.data.hostprep import prep_scan
@@ -186,8 +220,9 @@ from dram_tpu_torch.kernels import (_build, conv3d, conv_stack, pool,
 from dram_tpu_torch.models import DC3D, DC3DATGeneric
 from dram_tpu_torch.train import train_steps
 from dram_tpu_torch.train.__main__ import main as train_main
-from dram_tpu_torch.train.checkpoint import (adam_state_tree, load_checkpoint,
+from dram_tpu_torch.train.checkpoint import (load_checkpoint,
                                              newest_checkpoint,
+                                             optimizer_state_tree,
                                              save_checkpoint)
 from dram_tpu_torch.train.chunk_train import LesionSegChunkTrain
 from dram_tpu_torch.train.trainer import build_model
@@ -203,7 +238,11 @@ LIMITS = {"card": 30, "build": 180, "kernel": 60, "weights": 60,
           "train_golden": 240, "engine": 300, "engine_deploy": 180,
           "engine_stitch": 300, "host_prep": 300, "pipeline_wire": 120,
           "engine_w8": 300, "train_epochs": 300, "train_val_paths": 120,
-          "train_resume": 240}
+          "train_resume": 240, "generic_attention": 240,
+          "pipeline_generic": 180, "train_generic": 300,
+          "train_generic_plain": 300, "train_geo": 240,
+          "train_geo_plain": 240, "train_variant_b": 300,
+          "train_variant_b_plain": 300, "variant_b_epochs": 420}
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor-core
 # and f32 CUDA-core flop/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -228,6 +267,13 @@ DIGEST_SHA256 = ("307a62d8f0f3a848474b84e12154d8f85e0ab84b3d1fc8eeb35ca33a"
 # the running ones. The sound kernels read 7.5e-3 and 4.4e-5 on the last
 # two; PERF.md gives the readings of deliberately broken kernels.
 LOSS_RTOL, GRAD_COS_MIN, GRAD_REL_L2, BN_REL_L2 = 1e-2, 0.99, 3e-2, 1e-3
+# each PReLU slope's gradient on its own (relative error; the slopes are
+# also held together as one vector at GRAD_REL_L2): a slope's gradient
+# sums x * dy over a whole activation with cancelling signs, where bf16
+# rounding moves the smallest sum by 0.105 (variant B's ds_0 on an H100);
+# ds_0's gradient lost or at 70% reads 1.0 or 0.373 (PERF.md, the
+# variant-B readings of tools/train_gate_mutants.py)
+SLOPE_REL = 0.25
 # the kernel step (bf16 activations) vs dram_tpu's float64 step (the
 # train golden): loss terms and cosine as above; the relative L2 of the
 # gradients' seeded projections per group, and of the BatchNorm batch
@@ -589,7 +635,8 @@ def attention_backward_phases(gen):
             "stencil_attention_bwd", window_attention.stencil_attention_bwd,
             window_attention.stencil_attention_bwd_plain,
             (th, ph, g, yb, scal), rel,
-            work=lambda *d: (nbytes(th, ph, g, yb, scal, *d), 128.0 * edges,
+            # generic_pass_work's 6F + 4G + 8 flops an edge at F = G = 8
+            work=lambda *d: (nbytes(th, ph, g, yb, scal, *d), 88.0 * edges,
                              F32_FLOPS))
         leaves = [t.clone().requires_grad_() for t in (th, ph, g)]
         got = torch.autograd.grad(window_attention.stencil_attention(*leaves),
@@ -1166,7 +1213,13 @@ WRAPPERS = {"conv3x3x3": (conv_stack, "conv3x3x3"),
             "conv3d": (conv3d, "conv3d"),
             "conv3d_dx": (conv3d, "conv3d_dx"),
             "conv3d_dw": (conv3d, "conv3d_dw"),
-            "maxpool2_bwd_first": (pool, "maxpool2_bwd_first")}
+            "maxpool2_bwd_first": (pool, "maxpool2_bwd_first"),
+            "stencil_attention_generic": (window_attention,
+                                          "stencil_attention_generic"),
+            "stencil_attention_scal_generic": (
+                window_attention, "stencil_attention_scal_generic"),
+            "stencil_attention_bwd_generic": (
+                window_attention, "stencil_attention_bwd_generic")}
 META = {
     "conv3x3x3": ("dram_tpu_torch/kernels/csrc/conv3x3x3.cu",
                   "dram_tpu/core/pallas/fused_stack.py:305"),
@@ -1202,6 +1255,16 @@ META = {
     # the VJP of flax's nn.max_pool (XLA), the unfused stack's pool
     "maxpool2_bwd_first": ("dram_tpu_torch/kernels/csrc/maxpool2.cu",
                            "dram_tpu/models/blocks.py:384"),
+    # rows 2, 6 and 7 on every other stencil and width
+    "stencil_attention_generic": (
+        "dram_tpu_torch/kernels/csrc/stencil_attention_generic.cu",
+        "dram_tpu/core/pallas/window_attention.py:262"),
+    "stencil_attention_scal_generic": (
+        "dram_tpu_torch/kernels/csrc/stencil_attention_generic.cu",
+        "dram_tpu/core/pallas/window_attention.py:335"),
+    "stencil_attention_bwd_generic": (
+        "dram_tpu_torch/kernels/csrc/stencil_attention_generic.cu",
+        "dram_tpu/core/pallas/window_attention.py:366"),
 }
 # the __global__ functions behind each wrapper (csrc/*.cu)
 GLOBALS = {"conv3x3x3": "conv3x3x3_wgmma_kernel",
@@ -1212,7 +1275,12 @@ GLOBALS = {"conv3x3x3": "conv3x3x3_wgmma_kernel",
            "upsample2x_bwd": "upsample2x_bwd_kernel",
            "stencil_attention_scal": "stencil_attention_scal_kernel",
            "stencil_attention_bwd": "stencil_attention_bwd_kernel",
-           "maxpool2_bwd_first": "maxpool2_bwd_kernel"}
+           "maxpool2_bwd_first": "maxpool2_bwd_kernel",
+           "stencil_attention_generic": "stencil_attention_generic_kernel",
+           "stencil_attention_scal_generic":
+               "stencil_attention_scal_generic_kernel",
+           "stencil_attention_bwd_generic":
+               "stencil_attention_bwd_generic_kernel"}
 for _k in ("conv3x3x3_train", "conv3x3x3_dx", "conv3d", "conv3d_dx"):
     GLOBALS[_k] = GLOBALS["conv3x3x3"]
 GLOBALS["conv3d_dw"] = GLOBALS["conv3x3x3_dw"]
@@ -1247,6 +1315,23 @@ for _p in ("pipeline_p12", "pipeline_w8", "pipeline_device", "engine_w8"):
 # chunk wire's forward
 PATHS["train_epochs"] = tuple(dict.fromkeys(PATHS["train_att"]
                                             + PATHS["pipeline"]))
+# the variants: A, the PCM on the generic attention kernels (its scan
+# and its step; the second PCM with the positional encoding runs the
+# plain PCM path, so its step launches the backbone's kernels only); B,
+# the unfused stack with 'in' norms, PReLU and dropout, AdamW with
+# groups and IntRegAffRefineLoss (its step, and the CLI's epoch with
+# validation and resume)
+GENERIC_TRAIN = ("stencil_attention_generic", "stencil_attention_scal_generic",
+                 "stencil_attention_bwd_generic")
+UNFUSED_TRAIN = ("conv3d", "conv3d_dx", "conv3d_dw", "maxpool2",
+                 "maxpool2_bwd_first", "upsample2x", "upsample2x_bwd")
+PATHS["pipeline_generic"] = ("conv3x3x3", "maxpool2", "upsample2x",
+                             "stencil_attention_generic")
+PATHS["train_generic"] = TRAIN_KERNELS + GENERIC_TRAIN
+PATHS["train_geo"] = TRAIN_KERNELS
+PATHS["train_variant_b"] = UNFUSED_TRAIN + ATTENTION_TRAIN
+PATHS["variant_b_epochs"] = PATHS["train_variant_b"]
+PATHS["variant_b_resume"] = PATHS["train_variant_b"]
 FORWARD_LAUNCHES = {"conv3x3x3": 14, "maxpool2": 3, "upsample2x": 3,
                     "stencil_attention": 1}
 
@@ -1317,9 +1402,12 @@ def path_counts(path, expect=None):
     return counts
 
 
-def run_train(settings, label, batch, bench):
-    """TRAIN_STEPS steps of `settings` from the flagship's weights on
-    `batch`; returns the step-1 loss terms, gradients and buffers."""
+def run_train(settings, label, batch, bench, backbone_only=False,
+              steps=TRAIN_STEPS):
+    """`steps` steps of `settings` from the flagship's weights (all of
+    them, its backbone only with `backbone_only`, none when `bench` is
+    None: INITIALIZER) on `batch`; returns the step-1 loss terms,
+    gradients and buffers."""
     first = {}
 
     def on_step(i, step, r):
@@ -1329,13 +1417,17 @@ def run_train(settings, label, batch, bench):
             first["buffers"] = {n: b.detach().clone()
                                 for n, b in step.model.named_buffers()}
 
-    out = train_steps(settings, TRAIN_STEPS, [batch], device="cuda",
-                      weights_path=bench, on_step=on_step)
-    for i in range(TRAIN_STEPS):
-        (reg, seg), ms = out["losses"][i], out["ms"][i]
-        print(f"# train {label} step {i + 1}: reg {reg:.6g} seg {seg:.6g} "
-              f"total {out['loss'][i]:.6g}; ms forward {ms['forward']:.1f} "
-              f"backward {ms['backward']:.1f} optimizer "
+    out = train_steps(settings, steps, [batch], device="cuda",
+                      weights_path=bench, on_step=on_step,
+                      backbone_only=backbone_only)
+    for i in range(steps):
+        terms, ms = out["losses"][i], out["ms"][i]
+        names = ("reg", "seg") if len(terms) == 2 else \
+            tuple(f"loss {k}" for k in range(len(terms)))
+        print(f"# train {label} step {i + 1}: "
+              + " ".join(f"{n} {x:.6g}" for n, x in zip(names, terms))
+              + f" total {out['loss'][i]:.6g}; ms forward "
+              f"{ms['forward']:.1f} backward {ms['backward']:.1f} optimizer "
               f"{ms['optimizer']:.1f}; peak {out['peak_mib'][i]:.0f} MiB",
               flush=True)
         if not np.isfinite(out["losses"][i] + [out["loss"][i]]).all():
@@ -1344,25 +1436,29 @@ def run_train(settings, label, batch, bench):
         if not torch.isfinite(g).all():
             fail(f"train {label}: non-finite gradient of {n}")
     first["losses"] = out["losses"][0]
+    first["peak_mib"] = max(out["peak_mib"])
     return first
 
 
 def zero_in_exact_arithmetic(name):
     """The tap heads' 1x1x1 conv biases: a train-mode BatchNorm follows
-    and subtracts the batch mean, so their gradient is zero in exact
-    arithmetic and holds only rounding."""
-    return name.startswith("reshape_") and name.endswith("conv.bias")
+    and subtracts the batch mean; the PCM's geo_phi bias (the positional
+    merge types): it adds geo_theta_i . b to every logit of row i, which
+    the softmax cancels. Their gradients are zero in exact arithmetic and
+    hold only rounding."""
+    return (name.startswith("reshape_") and name.endswith("conv.bias")) \
+        or name == "attention_module.geo_phi.bias"
 
 
-def check_head_grads(run, label):
-    """Every PCM and tap-head parameter gets a non-zero, finite gradient
-    (the conv biases of zero_in_exact_arithmetic a finite one): no
-    gradient is dropped on the way to them."""
+def check_head_grads(run, label, n_heads=16):
+    """Every PCM and tap-head parameter (n_heads of them) gets a non-zero,
+    finite gradient (the conv biases of zero_in_exact_arithmetic a finite
+    one): no gradient is dropped on the way to them."""
     heads = {n: g for n, g in run["grads"].items()
              if n.startswith(("attention_module.", "reshape_"))}
-    if len(heads) != 16:
-        fail(f"train {label}: expected 16 PCM and tap-head parameters, got "
-             f"{sorted(heads)}")
+    if len(heads) != n_heads:
+        fail(f"train {label}: expected {n_heads} PCM and tap-head "
+             f"parameters, got {sorted(heads)}")
     size = {n: g.abs().max().item() for n, g in heads.items()}
     live = {n: v for n, v in size.items() if not zero_in_exact_arithmetic(n)}
     low = min(live, key=live.get)
@@ -1383,10 +1479,25 @@ def compare_train(k, p, initial, label="train"):
     rel = [abs(a - b) / max(abs(b), 1e-30)
            for a, b in zip(k["losses"], p["losses"])]
     cos, rl2 = {}, {}
-    for n, gp in p["grads"].items():
-        if zero_in_exact_arithmetic(n):
-            continue
-        gk = k["grads"][n]
+    # the PReLU slopes (one scalar a stack): each on its own at SLOPE_REL,
+    # and together as one vector under the cosine and GRAD_REL_L2
+    pairs = [(n, k["grads"][n], gp) for n, gp in p["grads"].items()
+             if not zero_in_exact_arithmetic(n)]
+    slopes = [(n, gk, gp) for n, gk, gp in pairs
+              if n.endswith("negative_slope")]
+    slope_rel = {}
+    if slopes:
+        for n, gk, gp in slopes:
+            slope_rel[n] = abs(gk.item() - gp.item()) / max(abs(gp.item()),
+                                                             1e-30)
+            print(f"# {label} {n}: gradient {gk.item():.6g} (plain "
+                  f"{gp.item():.6g}), relative error {slope_rel[n]:.3g} "
+                  f"(allowed {SLOPE_REL})", flush=True)
+        pairs = [t for t in pairs if not t[0].endswith("negative_slope")] \
+            + [(f"PReLU slopes ({len(slopes)})",
+                torch.stack([gk.flatten() for _, gk, _ in slopes]),
+                torch.stack([gp.flatten() for _, _, gp in slopes]))]
+    for n, gk, gp in pairs:
         cos[n] = (torch.dot(gk.flatten(), gp.flatten())
                   / (gk.norm() * gp.norm()).clamp(min=1e-30)).item()
         rl2[n] = ((gk - gp).norm() / gp.norm().clamp(min=1e-30)).item()
@@ -1414,18 +1525,21 @@ def compare_train(k, p, initial, label="train"):
             print(f"# {label} {group}: worst cosine {cos[gc]:.6f} ({gc}), "
                   f"worst relative L2 {rl2[gr]:.3g} ({gr})", flush=True)
     if not (max(rel) <= LOSS_RTOL and cos[wc] >= GRAD_COS_MIN
-            and rl2[wr] <= GRAD_REL_L2 and bn[wb] <= BN_REL_L2):
+            and rl2[wr] <= GRAD_REL_L2 and bn[wb] <= BN_REL_L2
+            and all(e <= SLOPE_REL for e in slope_rel.values())):
         fail(f"{label} step with the kernels disagrees with the plain run")
 
 
 def train_phases(settings, name, bench, initial_of, launches, extra=None,
-                 expect=None):
-    """Phases `name` and `name plain`: TRAIN_STEPS steps of `settings`
-    with the kernels (launch counts of PATHS[name] zeroed just before,
-    read just after), the same steps with the plain versions, and the
-    gate between them. `extra(batch)` runs first in the kernel phase;
-    `initial_of()` gives the start's buffers; `expect` the launches per
-    step. Returns both runs."""
+                 expect=None, backbone_only=False, steps=TRAIN_STEPS):
+    """Phases `name` and `name plain`: `steps` steps of `settings` with
+    the kernels (launch counts of PATHS[name] zeroed just before, read
+    just after), the same steps with the plain versions, and the gate
+    between them (the same start and the same generator seeds for
+    dropout and the loss's transforms). `extra(batch)` runs first in the
+    kernel phase; `initial_of()` gives the start's buffers; `expect` the
+    launches per step; `bench` and `backbone_only` as in run_train.
+    Returns both runs."""
     label = name.replace("_", " ")
     tag = label[len("train "):] + " " if label != "train" else ""
     with phase(label, LIMITS[name]):
@@ -1440,10 +1554,11 @@ def train_phases(settings, name, bench, initial_of, launches, extra=None,
         if extra is not None:
             extra(batch)
         zero_counts()
-        k_run = run_train(settings, tag + "kernels", batch, bench)
+        k_run = run_train(settings, tag + "kernels", batch, bench,
+                          backbone_only, steps)
         launches[name] = path_counts(name, {
-            k: n * TRAIN_STEPS for k, n in (expect or {}).items()})
-        print(f"# launches over the {TRAIN_STEPS} {tag}training steps: "
+            k: n * steps for k, n in (expect or {}).items()})
+        print(f"# launches over the {steps} {tag}training steps: "
               f"{launches[name]}", flush=True)
         torch.cuda.empty_cache()
 
@@ -1452,7 +1567,8 @@ def train_phases(settings, name, bench, initial_of, launches, extra=None,
               "(cudnn.allow_tf32 = cuda.matmul.allow_tf32 = False)",
               flush=True)
         with plain_versions():
-            p_run = run_train(settings, tag + "plain versions", batch, bench)
+            p_run = run_train(settings, tag + "plain versions", batch, bench,
+                              backbone_only, steps)
         compare_train(k_run, p_run, initial_of(), label)
         torch.cuda.empty_cache()
     return k_run, p_run
@@ -2399,7 +2515,7 @@ def train_resume_phase(smp, first, card):
     path = newest_checkpoint(again.exp_path)
     saved = load_checkpoint(path)
     got = {"model": again.model_state_tree(),
-           "optimizer": adam_state_tree(again.optimizer, again.model)}
+           "optimizer": optimizer_state_tree(again.optimizer, again.model)}
 
     def leaves(tree, prefix=""):
         for k, v in sorted(tree.items()):
@@ -2440,6 +2556,273 @@ def train_resume_phase(smp, first, card):
           f"2.ckpt written, scheduler steps {again.scheduler.steps}, "
           f"launches {counts}", flush=True)
     return counts
+
+
+# --- the generic stencil-attention kernels and the two variants -------------
+
+# (stencil (k, connectivity, self loop), (F, G), batch) of each check of the
+# generic kernels, all at 64^3; the last is variant A's step shape, whose
+# times the kernels line reports
+GENERIC_CASES = [((3, 1, True), (16, 4), 2), ((3, 3, True), (33, 1), 2),
+                 ((5, 2, True), (16, 4), 2), ((7, 1, True), (8, 8), 2),
+                 ((5, 2, True), (16, 4), 10)]
+GENERIC_KERNELS = ("stencil_attention_generic_kernel",
+                   "stencil_attention_scal_generic_kernel",
+                   "stencil_attention_bwd_generic_kernel")
+
+
+def generic_pass_work(kind, F, G, voxels, edges):
+    """(bytes, flops) of one pass: each input read once and each output
+    written once; per valid edge the operations the function needs, each
+    once, as stencil_attention_*_plain computes them (the kernels compute
+    the logit's dot again on each sweep and on the gradient pass's -o
+    side, which the bound does not count): the forward's logit dot 2F
+    and aggregate 2G; the statistics pass's logit dot 2F and u's dot 2G;
+    the gradient pass's logit dot 2F, u's dot 2G and its three
+    accumulations ds phi, ds theta and a ybar (2F, 2F, 2G); a few scalar
+    operations an edge for the logit, the softmax weight and ds."""
+    if kind == "fwd":
+        return 4 * voxels * (2 * F + 2 * G), edges * (2 * F + 2 * G + 6)
+    if kind == "scal":
+        return 4 * voxels * (2 * F + 2 * G + 4), edges * (2 * F + 2 * G + 8)
+    return 4 * voxels * (4 * F + 3 * G + 4), edges * (6 * F + 4 * G + 8)
+
+
+def generic_attention_phase(gen):
+    """Each generic stencil-attention kernel (forward, statistics and
+    gradient passes; csrc/stencil_attention_generic.cu) at every case of
+    GENERIC_CASES: each output (each of the statistics pass's four
+    channels r, m, denom, c on its own) against its plain version within
+    1e-4 of that output's largest value, on inputs on a 1/8 grid (every
+    dot product exact in f32),
+    launched twice with bitwise-equal results, timed per launch over
+    ATT_REPEAT launches back to back beside its bound; at batch 2 also
+    StencilAttentionFunction's gradients against autograd through the
+    plain forward (1e-4). Returns the kernels line's records (variant
+    A's shape, the last case)."""
+    wa = window_attention
+    ptxas_report(GENERIC_KERNELS)
+    rel = lambda yp: 1e-4 * yp.abs().max().item()  # noqa: E731
+    res = {}
+    for stencil, (F, G), B in GENERIC_CASES:
+        offs = wa.stencil_offsets(*stencil)
+        th, ph = (torch.round(torch.randn(B, 64, 64, 64, F, generator=gen,
+                                          device="cuda") * 8) / 8
+                  for _ in range(2))
+        g, yb = (torch.round(torch.randn(B, 64, 64, 64, G, generator=gen,
+                                         device="cuda") * 8) / 8
+                 for _ in range(2))
+        edges = B * int(wa.valid_masks((64, 64, 64), offs).sum())
+        scal = wa.stencil_attention_scal_plain(th, ph, g, yb, offs)
+        passes = (("fwd", "stencil_attention_generic",
+                   wa.stencil_attention_plain, (th, ph, g, offs)),
+                  ("scal", "stencil_attention_scal_generic",
+                   wa.stencil_attention_scal_plain, (th, ph, g, yb, offs)),
+                  ("bwd", "stencil_attention_bwd_generic",
+                   wa.stencil_attention_bwd_plain,
+                   (th, ph, g, yb, scal, offs)))
+        tag = (f"k={stencil[0]} c={stencil[1]} self loop {stencil[2]} "
+               f"({len(offs)} offsets), F={F} G={G}, {B}x64^3")
+        for kind, name, plain, args in passes:
+            fn = getattr(wa, name)
+            split = (lambda t: t.unbind(-1)) if kind == "scal" else _outputs
+            with torch.no_grad():
+                y, yp, y2 = (split(f(*args)) for f in (fn, plain, fn))
+                torch.cuda.synchronize()
+                errs = [(a - b).abs().max().item() for a, b in zip(y, yp)]
+                allows = [rel(b) for b in yp]
+                err = max(errs)
+                same = all(torch.equal(a, b) for a, b in zip(y, y2))
+                ms = cuda_ms(lambda: [fn(*args) for _ in range(ATT_REPEAT)]) \
+                    / ATT_REPEAT
+                plain_ms = cuda_ms(lambda: plain(*args), reps=3)
+            nb, ops = generic_pass_work(kind, F, G, B * 64 ** 3, edges)
+            bound_ms, bound_by = bound(nb, ops, F32_FLOPS)
+            print(f"# generic attention {kind} {tag}: max_abs_err "
+                  + ", ".join(f"{e:.3g} (allowed {al:.3g})"
+                              for e, al in zip(errs, allows))
+                  + ", repeat "
+                  f"{'bitwise equal' if same else 'DIFFERS'}; ms {ms:.4f}, "
+                  f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}), {100 * bound_ms / ms:.1f}% of it",
+                  flush=True)
+            if not all(e <= al for e, al in zip(errs, allows)):
+                fail(f"generic attention {kind} {tag}: disagrees with its "
+                     "plain version")
+            if not same:
+                fail(f"generic attention {kind} {tag}: two launches differ "
+                     "bitwise")
+            res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": None}
+            del y, yp, y2
+        if B == 2:
+            leaves = [t.clone().requires_grad_() for t in (th, ph, g)]
+            got = torch.autograd.grad(wa.stencil_attention(*leaves, offs),
+                                      leaves, yb)
+            want = torch.autograd.grad(
+                wa.stencil_attention_plain(*leaves, offs), leaves, yb)
+            for gname, a, b in zip(("dtheta", "dphi", "dg"), got, want):
+                e = (a - b).abs().max().item()
+                print(f"# generic attention StencilAttentionFunction {gname} "
+                      f"{tag} vs autograd of the plain forward: max_abs_err "
+                      f"{e:.3g} (allowed {rel(b):.3g})", flush=True)
+                if not e <= rel(b):
+                    fail(f"StencilAttentionFunction {gname} disagrees with "
+                         f"autograd ({tag})")
+            del leaves, got, want
+        del th, ph, g, yb, scal
+        torch.cuda.empty_cache()
+    return res
+
+
+# variant A: the flagship with a k = 5, connectivity-2, self-loop PCM (98
+# offsets, asymmetric, halo 2) of widths F = 16 (a 33-channel PCM input) and
+# G = 4; VARIANT_GEO its second PCM, with the positional encoding
+VARIANT_A = dict(at_k_size=5, at_connectivity=2, at_self_loop=True,
+                 at_f_dim=16, at_g_dim=4)
+VARIANT_GEO = dict(at_merge_type="scaled_dot_product_geo_relu",
+                   at_p_enc_dim=24, at_geo_f_dim=8)
+
+
+def variant_a(**pcm):
+    return with_settings(st_dram_ref_att, MODEL=dict(
+        st_dram_ref_att.MODEL, **VARIANT_A, **pcm))
+
+
+def variant_b():
+    """Variant B: 'in' norms, PReLU, dropout 0.1, HeNorm fan_out, Adam with
+    weight decay 1e-4 and an attention_module group at lr 1e-3,
+    IntRegAffRefineLoss with a rescale pool of 64 / 80 / 96 (each halves
+    evenly three times for the pools)."""
+    loss = {k: v for k, v in st_dram_ref_att.LOSS_FUNC.items()
+            if k != "method"}
+    return with_settings(
+        st_dram_ref_att,
+        MODEL=dict(st_dram_ref_att.MODEL, norm_method="in",
+                   act_method="prelu", dropout=0.1),
+        INITIALIZER={"method": "models.HeNorm", "mode": "fan_out"},
+        OPTIMIZER=dict(st_dram_ref_att.OPTIMIZER, weight_decay=1e-4,
+                       groups={"attention_module": {"lr": 1e-3}}),
+        LOSS_FUNC=dict(loss, method="metrics.IntRegAffRefineLoss",
+                       rescale_jitter=[64, 80, 96]))
+
+
+def variant_model(settings, bench, dtype=torch.bfloat16):
+    """The model of `settings` initialised by its INITIALIZER from
+    RANDOM_SEED and, with `bench`, the trained flagship's backbone over
+    it (fresh tap heads and PCM)."""
+    m = build_model(settings, dtype)
+    init = dict(settings.INITIALIZER)
+    get_callable_by_name(init.pop("method"))(**init)(
+        m, torch.Generator().manual_seed(settings.RANDOM_SEED))
+    if bench is not None:
+        weights.load_backbone(m.backbone, bench)
+    return m
+
+
+def pipeline_generic_phase(prepc, bench, launches):
+    """Variant A's scan: process_chunks with the kernels (launch counts of
+    pipeline_generic zeroed just before, read just after: the generic
+    attention forward, not the plane ring), then with the plain
+    versions; pred masks at Dice >= 0.99."""
+    pipe = FastScanPipeline(variant_model(variant_a(), bench), device="cuda")
+    zero_counts()
+    k = run_scan(pipe, prepc, False, "variant A kernels")
+    launches["pipeline_generic"] = path_counts(
+        "pipeline_generic", {"stencil_attention_generic": 1})
+    print(f"# launches over variant A's scan: {launches['pipeline_generic']}",
+          flush=True)
+    with plain_versions():
+        p = run_scan(pipe, prepc, False, "variant A plain versions")
+    d = dice(k["pred"], p["pred"])
+    print(f"# variant A scan, kernels vs plain on the card: pred Dice {d:.6f} "
+          "(limit 0.99)", flush=True)
+    if not d >= 0.99:
+        fail("variant A's scan disagrees with the plain versions")
+
+
+def variant_buffers(settings, bench):
+    def initial():
+        return dict(variant_model(settings, bench, torch.float32)
+                    .named_buffers())
+    return initial
+
+
+def variant_b_epochs_phase(root, card):
+    """The training CLI's main on variant B over the synthetic dataset of
+    train epochs: one epoch from INITIALIZER (validated, checkpointed),
+    then a resume (RELOAD_CHECKPOINT: model, optimizer, metrics) whose
+    optimizer state equals the checkpoint's bitwise, with NUM_EPOCHS = 2:
+    the loop restarts the checkpoint's epoch, so epochs 0 and 1.
+    Gates: finite losses, 0.ckpt and 1.ckpt, the checkpoint's optimizer
+    in dram_tpu's multi_transform layout (groups attention_module and
+    __default__, AdamW's weight_decay), every group's lr at its base *
+    gamma after one validation, every kernel of the path launched and no
+    other. Prints each epoch's peak MiB."""
+    db = f"{root}/db"
+    vb = variant_b()
+    path = epoch_settings(root, db, epoch_label_count(db), EXP_NAME="variant_b",
+                          NUM_EPOCHS=1, MODEL=vb.MODEL,
+                          INITIALIZER=vb.INITIALIZER, OPTIMIZER=vb.OPTIMIZER,
+                          LOSS_FUNC=vb.LOSS_FUNC)
+    smp = f"{root}/variant_b_settings.py"
+    os.replace(path, smp)
+    zero_counts()
+    runner = train_main(["0", str(vb.OPTIMIZER["lr"]), "--batch_size", "10",
+                         "--smp", smp, "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = {"variant_b_epochs": path_counts("variant_b_epochs")}
+    print_epochs(runner, "variant B epochs", card)
+    ckpt = runner.exp_path + "0.ckpt"
+    if not os.path.exists(ckpt) or len(runner.history) != 1:
+        fail("variant B epochs: one epoch and 0.ckpt")
+    saved = load_checkpoint(ckpt)
+    groups = saved["optimizer"].get("inner_states", {})
+    if sorted(groups) != ["__default__", "attention_module"] or any(
+            "weight_decay" not in g["inner_state"]["hyperparams"]
+            for g in groups.values()):
+        fail(f"variant B epochs: optimizer layout {sorted(groups)}")
+    sch = runner.scheduler
+    lrs = {g["label"]: g["lr"] for g in runner.optimizer.param_groups}
+    want = {"__default__": vb.OPTIMIZER["lr"] * sch.gamma,
+            "attention_module": 1e-3 * sch.gamma}
+    if any(abs(lrs[k] - v) > 1e-12 for k, v in want.items()):
+        fail(f"variant B epochs: group lrs {lrs}, expected {want}")
+    print(f"# variant B epochs: launches {launches['variant_b_epochs']}; "
+          f"optimizer groups {sorted(groups)} (AdamW, weight_decay "
+          f"{vb.OPTIMIZER['weight_decay']}), lrs {lrs} after "
+          f"{sch.steps} scheduler step", flush=True)
+    s = Settings(smp)
+    s.RELOAD_CHECKPOINT, s.RELOAD_CHECKPOINT_PATH = True, None
+    s.RELOAD_DICT_LIST = ["model", "optimizer", "metrics"]
+    s.NUM_EPOCHS = 2
+    again = LesionSegChunkTrain(s, device="cuda")
+    have = optimizer_state_tree(again.optimizer, again.model)
+
+    def leaves(tree, prefix=""):
+        for k, v in sorted(tree.items()):
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            else:
+                yield prefix + k, np.asarray(v)
+    want_t, have_t = dict(leaves(saved["optimizer"])), dict(leaves(have))
+    if want_t.keys() != have_t.keys() or not all(
+            np.array_equal(v, have_t[k]) for k, v in want_t.items()):
+        fail("variant B resume: the optimizer state differs from 0.ckpt's")
+    zero_counts()
+    again.run()
+    torch.cuda.synchronize()
+    launches["variant_b_resume"] = path_counts("variant_b_resume")
+    print_epochs(again, "variant B resume", card)
+    # the loop restarts the checkpoint's epoch (0), as dram_tpu's does
+    if [e["epoch"] for e in again.history] != [0, 1] or \
+            not os.path.exists(again.exp_path + "1.ckpt"):
+        fail("variant B resume: epochs 0..1 and 1.ckpt")
+    print(f"# variant B resume: {len(want_t)} optimizer arrays bitwise equal "
+          f"to 0.ckpt's; epochs 0..1 trained, 1.ckpt written; launches "
+          f"{launches['variant_b_resume']}", flush=True)
+    return launches
 
 
 def unfused_vs_fused(f, u):
@@ -2549,6 +2932,11 @@ def main():
         golden_phase((scan, lobe, vessel), prepc,
                      {"fused kernels": warm, "unfused kernels": uwarm})
 
+    with phase("pipeline generic", LIMITS["pipeline_generic"]):
+        pipeline_generic_phase(prepc, os.path.join(
+            ROOT, "assets", "bench_weights.ckpt.xz"), launches)
+    torch.cuda.empty_cache()
+
     del upipe
     torch.cuda.empty_cache()
     with phase("host prep", LIMITS["host_prep"]):
@@ -2584,6 +2972,9 @@ def main():
     with phase("attention sweep", LIMITS["attention_sweep"]):
         attention_sweep_phase(gen)
     torch.cuda.empty_cache()
+    with phase("generic attention", LIMITS["generic_attention"]):
+        res.update(generic_attention_phase(gen))
+    torch.cuda.empty_cache()
 
     bench = os.path.join(ROOT, "assets", "bench_weights.ckpt.xz")
     train_phases(st_dram_ref, "train", bench, lambda: dict(
@@ -2615,6 +3006,30 @@ def main():
     del k_run, uk_run, up_run
     torch.cuda.empty_cache()
 
+    va = variant_a()
+    gk, gp = train_phases(va, "train_generic", bench,
+                          variant_buffers(va, bench), launches,
+                          backbone_only=True)
+    check_head_grads(gk, "generic kernels")
+    check_head_grads(gp, "generic plain versions")
+    del gk, gp
+    torch.cuda.empty_cache()
+    geo = variant_a(**VARIANT_GEO)
+    ok, op = train_phases(geo, "train_geo", bench, variant_buffers(geo, bench),
+                          launches, backbone_only=True, steps=1)
+    check_head_grads(ok, "geo kernels", 20)
+    del ok, op
+    torch.cuda.empty_cache()
+    vb = variant_b()
+    bk, bp = train_phases(vb, "train_variant_b", None,
+                          variant_buffers(vb, None), launches)
+    check_head_grads(bk, "variant B kernels")
+    print(f"# train variant B: peak {bk['peak_mib']:.0f} MiB over its "
+          f"{TRAIN_STEPS} steps (two forwards a step, the rescale up to "
+          f"96^3) ({card})", flush=True)
+    del bk, bp
+    torch.cuda.empty_cache()
+
     with phase("train golden", LIMITS["train_golden"]):
         train_golden_phase(bench, launches,
                            (("train_golden", st_dram_ref_att),
@@ -2631,6 +3046,9 @@ def main():
         with phase("train resume", LIMITS["train_resume"]):
             train_resume_phase(smp, first, card)
         del first
+        torch.cuda.empty_cache()
+        with phase("variant b epochs", LIMITS["variant_b_epochs"]):
+            launches.update(variant_b_epochs_phase(root, card))
         torch.cuda.empty_cache()
 
     kernels = []

@@ -6,15 +6,25 @@ from __future__ import annotations
 import importlib
 import types
 
-# reference-style method names -> the port's callables (the JAX package's
-# dram_tpu/utils.py:_ALIASES for the names the COVID configs use)
+# reference-style method names -> the port's callables (every name of the
+# JAX package's dram_tpu/utils.py:_ALIASES)
 _ALIASES = {
     "models.DC3D": "dram_tpu_torch.models.unet3d.DC3D",
     "models.DC3DATGeneric": "dram_tpu_torch.models.dc3d_at.DC3DATGeneric",
     "models.HeNorm": "dram_tpu_torch.models.initializers.HeNorm",
+    "models.PCM": "dram_tpu_torch.models.pcm.PCM",
     "metrics.IntRegLoss": "dram_tpu_torch.losses.interval_reg.IntRegLoss",
     "metrics.IntRegRefineLoss": "dram_tpu_torch.losses.refine.IntRegRefineLoss",
+    "metrics.IntRegAffLoss":
+        "dram_tpu_torch.losses.equivariance.IntRegAffLoss",
+    "metrics.IntRegAffRefineLoss":
+        "dram_tpu_torch.losses.equivariance.IntRegAffRefineLoss",
+    "metrics.BootBinCrossEntropy":
+        "dram_tpu_torch.losses.bootstrap_bce.BootBinCrossEntropy",
+    "metrics.BinaryCrossEntropySmooth":
+        "dram_tpu_torch.losses.bootstrap_bce.BinaryCrossEntropySmooth",
     "torch.optim.Adam": "dram_tpu_torch.train.trainer.adam",
+    "torch.optim.SGD": "dram_tpu_torch.train.trainer.sgd",
     "torch.optim.lr_scheduler.ExponentialLR":
         "dram_tpu_torch.train.trainer.ExponentialLR",
     "job_runner.LesionSegTest": "dram_tpu_torch.infer.engine.LesionSegTest",

@@ -1,9 +1,11 @@
-"""Separable 3-D resampling: align-corners trilinear resize and the
-ITK-semantics grid resample, on tensors and on host arrays.
+"""Separable 3-D resampling: trilinear (align-corners or half-pixel) and
+nearest resizes, the strictly local 2x upsample and the ITK-semantics
+grid resample, on tensors and on host arrays.
 
-Port of dram_tpu/core/resample.py (`resize3d` :197, `itk_resample3d`
-:260, `resize3d_np` :349, `itk_resample3d_np` :365, `_axis_weights` :73)
-for the modes the inference paths use: each
+Port of dram_tpu/core/resample.py (`resize3d` :197, `upsample2x_local`
+:324, `itk_resample3d` :260, `resize3d_np` :349, `itk_resample3d_np`
+:365, `_axis_weights` :73) for the modes the model, the equivariance
+losses and the inference paths use: each
 axis is resized by a dense (out, in) weight matrix with <= 2 non-zeros
 per row, built in float64 and stored as float32 exactly as the JAX
 package builds it.
@@ -22,7 +24,8 @@ def _axis_weights(in_size: int, out_size: int, mode: str,
                   scale: float | None):
     """(out, in) float32 weight matrix + (out,) validity vector.
 
-    Modes: 'linear_ac' (torch align_corners=True), 'nearest_torch' (torch
+    Modes: 'linear_ac' (torch align_corners=True), 'linear_hp' (torch
+    align_corners=False, half-pixel), 'nearest_torch' (torch
     F.interpolate nearest), 'itk_linear' and
     'itk_nearest' (SimpleITK: src = i * scale, points outside
     [-0.5, in - 0.5) take the fill value). `scale` is new/old spacing for
@@ -34,6 +37,9 @@ def _axis_weights(in_size: int, out_size: int, mode: str,
             src = np.zeros((1,))
         else:
             src = np.arange(out_size) * (in_size - 1) / (out_size - 1)
+    elif mode == "linear_hp":
+        src = (np.arange(out_size) + 0.5) * in_size / out_size - 0.5
+        src = np.clip(src, 0.0, in_size - 1)
     elif mode == "nearest_torch":
         idx = np.floor(np.arange(out_size) * in_size / out_size) \
             .astype(np.int64)
@@ -71,19 +77,43 @@ def _spatial_axes(ndim):
     raise ValueError(f"resize3d expects 3/4/5-D input, got {ndim}-D")
 
 
-def resize3d(x, out_size):
-    """Align-corners trilinear resize (torch F.interpolate semantics) of
-    (D, H, W), (D, H, W, C) or (B, D, H, W, C), computed in f32 and
-    returned in x's dtype (dram_tpu resize3d, method='trilinear')."""
+def resize3d(x, out_size, method="trilinear", align_corners=True):
+    """torch F.interpolate-semantics resize of (D, H, W), (D, H, W, C) or
+    (B, D, H, W, C), computed in f32 and returned in x's dtype
+    (dram_tpu resize3d): 'trilinear' with align_corners (the model's
+    upsampling) or half-pixel (align_corners=False, the one-shot
+    rescale), or torch's 'nearest'."""
+    if method == "trilinear":
+        mode = "linear_ac" if align_corners else "linear_hp"
+    elif method == "nearest":
+        mode = "nearest_torch"
+    else:
+        raise ValueError(method)
     dtype = x.dtype
     y = x.float()
     for ax, o in zip(_spatial_axes(x.ndim), out_size):
         if y.shape[ax] == int(o):
             continue
-        W, _ = _axis_weights(y.shape[ax], int(o), "linear_ac", None)
+        W, _ = _axis_weights(y.shape[ax], int(o), mode, None)
         Wt = torch.from_numpy(W).to(y.device)
         y = torch.movedim(torch.movedim(y, ax, -1) @ Wt.T, -1, ax)
-    return y.to(dtype)
+    return y.to(dtype) if dtype.is_floating_point else y
+
+
+def upsample2x_local(x):
+    """Strictly local 2x trilinear upsample, half-pixel centres, edges
+    clamped: out[2i] = 0.25 in[i-1] + 0.75 in[i], out[2i+1] = 0.75 in[i] +
+    0.25 in[i+1] (dram_tpu/core/resample.py:324-346), in x's dtype."""
+    for ax in _spatial_axes(x.ndim):
+        n = x.shape[ax]
+        lo = torch.cat([x.narrow(ax, 0, 1), x.narrow(ax, 0, n - 1)], ax)
+        hi = torch.cat([x.narrow(ax, 1, n - 1), x.narrow(ax, n - 1, 1)], ax)
+        even = 0.25 * lo + 0.75 * x
+        odd = 0.75 * x + 0.25 * hi
+        shape = list(x.shape)
+        shape[ax] *= 2
+        x = torch.stack([even, odd], dim=ax + 1).reshape(shape)
+    return x
 
 
 def itk_resample3d(x, out_size, scales, method="linear", fill_value=0.0):

@@ -36,6 +36,7 @@ BUILD_TIMEOUT_S = 180
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _PI64 = ctypes.POINTER(ctypes.c_int64)
+_PI32 = ctypes.POINTER(ctypes.c_int32)
 # launcher name -> argtypes (every launcher returns cudaGetLastError(), or
 # a negative code of csrc/conv_wgmma.cuh)
 SIGNATURES = {
@@ -58,6 +59,14 @@ SIGNATURES = {
                                    _I64, _P],
     "stencil_attention_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I64,
                                   _I64, _I64, _I64, _PI64, _P],
+    "stencil_attention_generic_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                                      _I64, _I64, _PI32, _I64, _P],
+    "stencil_attention_scal_generic_f32": [_P, _P, _P, _P, _P, _I64, _I64,
+                                           _I64, _I64, _I64, _I64, _PI32,
+                                           _I64, _P],
+    "stencil_attention_bwd_generic_f32": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                          _I64, _I64, _I64, _I64, _I64, _I64,
+                                          _PI32, _I64, _P],
 }
 
 _lock = threading.Lock()

@@ -1,21 +1,35 @@
 """Stencil attention of the PCM refinement (merge type
-'scaled_dot_product_relu') and its gradient.
+'scaled_dot_product_relu') and its gradient, on any stencil and widths.
 
 Port of dram_tpu/core/pallas/window_attention.py:stencil_attention, the
 jax.custom_vjp that dram_tpu/models/pcm.py calls on its use_pallas
 branch: the forward (_fwd_kernel) and the two passes of its backward
 (_vjp_bwd: the per-voxel statistics _scal_kernel, then the gathered
-gradients _bwd_kernel), bound together by StencilAttentionFunction. CUDA
-source: csrc/stencil_attention.cu. The plain versions are the roll+mask
-formulation of dram_tpu/models/pcm.py.
+gradients _bwd_kernel), bound together by StencilAttentionFunction. The
+plain versions are the roll+mask formulation of dram_tpu/models/pcm.py.
 
-The launch geometry of the forward and the gradient pass is decided here
-(fwd_plan, bwd_plan): a block owns a tile of (batch element, run of
-z-planes, run of rows, run of columns) and streams it along z through a
-ring of shared-memory plane buffers, each holding the tile's rows and
-columns with a +-1 halo. The plans raise where a tile plan would leave a
-voxel uncovered; the C launchers run the `args` vector they are handed
-and refuse one whose buffers or coverage differ from the kernel's.
+Two kernel families, chosen by the operands (never by a failure):
+
+- the plane ring (csrc/stencil_attention.cu) takes the shipped stencil
+  (KERNEL_OFFSETS: k = 3, connectivity 2, no self loop) with F = G = 8;
+- the generic kernels (csrc/stencil_attention_generic.cu) take every
+  other stencil of up to GENERIC_MAX_K offsets within GENERIC_MAX_HALO
+  of the centre and widths 1..GENERIC_MAX_WIDTH.
+
+A CUDA tensor that neither takes raises; CPU tensors take the plain
+versions. `stencil_attention`, `stencil_attention_scal` and
+`stencil_attention_bwd` dispatch and count the plane ring's launches;
+`stencil_attention_generic`, `stencil_attention_scal_generic` and
+`stencil_attention_bwd_generic` launch (and count) the generic kernels.
+
+The launch geometry of the plane ring's forward and gradient pass is
+decided here (fwd_plan, bwd_plan): a block owns a tile of (batch
+element, run of z-planes, run of rows, run of columns) and streams it
+along z through a ring of shared-memory plane buffers, each holding the
+tile's rows and columns with a +-1 halo. The plans raise where a tile
+plan would leave a voxel uncovered; the C launchers run the `args`
+vector they are handed and refuse one whose buffers or coverage differ
+from the kernel's.
 """
 
 from __future__ import annotations
@@ -23,6 +37,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from . import _build
@@ -49,28 +64,54 @@ NBUF, MAX_NBUF = 4, 8
 SMEM_BLOCK, BAR_BYTES = 227 * 1024, 128
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=64)
 def stencil_offsets(k_size=3, connectivity=2, self_loop=False):
-    """Neighbour offsets of scipy's generate_binary_structure(3,
-    connectivity) (the voxels within L1 distance `connectivity` of the
-    centre), minus the centre unless `self_loop`, in lexicographic (z, y,
-    x) order: dram_tpu/models/pcm.py:stencil_offsets without scipy."""
-    if k_size != 3:
-        raise NotImplementedError(
-            f"k_size={k_size}: only the shipped k=3 stencil is ported "
-            "(ROADMAP Queue 1, PCM variants)")
-    offs = []
-    for dz in (-1, 0, 1):
-        for dy in (-1, 0, 1):
-            for dx in (-1, 0, 1):
-                l1 = abs(dz) + abs(dy) + abs(dx)
-                if l1 <= connectivity and (l1 > 0 or self_loop):
-                    offs.append((dz, dy, dx))
-    return tuple(offs)
+    """Neighbour offsets of the reference's zoomed binary structure:
+    dram_tpu/models/pcm.py:stencil_offsets without scipy. The voxels
+    within L1 distance `connectivity` of the centre of a 3^3 cube
+    (scipy's generate_binary_structure(3, connectivity)), zoomed to
+    k_size^3 by nearest neighbour as scipy's ndimage.zoom(order=0) does
+    (output voxel o reads input coordinate o (3 - 1) / (k_size - 1),
+    rounded half up), minus the centre unless `self_loop`, in
+    lexicographic (z, y, x) order.
+
+    For k_size 5 the rounding makes connectivity 1 and 2 asymmetric: some
+    offset o is in the stencil while -o is not."""
+    k = int(k_size)
+    if k < 1:
+        raise ValueError(f"k_size={k_size}: needs k_size >= 1")
+    c = max(int(connectivity), 1)
+    i = np.abs(np.arange(3) - 1)
+    base = i[:, None, None] + i[None, :, None] + i[None, None, :] <= c
+    if k != 3:
+        src = np.floor(np.arange(k) * (2.0 / max(k - 1, 1)) + 0.5)
+        src = np.clip(src.astype(np.int64), 0, 2)
+        base = base[np.ix_(src, src, src)]
+    offs = np.argwhere(base) - k // 2
+    if not self_loop:
+        offs = offs[~np.all(offs == 0, axis=1)]
+    return tuple(map(tuple, offs.tolist()))
 
 
 # the offsets csrc/stencil_attention.cu enumerates
 KERNEL_OFFSETS = stencil_offsets(3, 2, False)
+# what csrc/stencil_attention_generic.cu takes: offsets, their largest
+# |component|, widths
+GENERIC_MAX_K, GENERIC_MAX_HALO, GENERIC_MAX_WIDTH = 343, 3, 64
+
+
+def ring_takes(offsets, F, G):
+    """The plane-ring kernels take these operands: the shipped stencil
+    with F = G = 8."""
+    return tuple(map(tuple, offsets)) == KERNEL_OFFSETS and F == G == 8
+
+
+def generic_takes(offsets, F, G):
+    """The generic kernels take these operands: 1..GENERIC_MAX_K offsets
+    within GENERIC_MAX_HALO of the centre, widths 1..GENERIC_MAX_WIDTH."""
+    return (1 <= len(offsets) <= GENERIC_MAX_K
+            and all(abs(a) <= GENERIC_MAX_HALO for o in offsets for a in o)
+            and 1 <= F <= GENERIC_MAX_WIDTH and 1 <= G <= GENERIC_MAX_WIDTH)
 
 
 def valid_masks(spatial, offsets, device=None):
@@ -90,12 +131,18 @@ def _shift(x, off):
     return torch.roll(x, shifts=(-off[0], -off[1], -off[2]), dims=(1, 2, 3))
 
 
+def _real(t):
+    """f32, or float64 where the caller computes in float64 (the tests'
+    reference precision)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def _edge_logits(theta, phi, offsets):
     """Per offset k the masked logit relu(theta_i . phi_{i+o}) r_i (-inf
     where i + o lies outside), the raw dot and r = 1/sqrt(max(deg, 1)):
     ((B, D, H, W, K), (B, D, H, W, K), (D, H, W, 1))."""
     valid = valid_masks(theta.shape[1:4], offsets, theta.device)
-    r = torch.rsqrt(torch.clamp(valid.sum(-1, keepdim=True).float(),
+    r = torch.rsqrt(torch.clamp(valid.sum(-1, keepdim=True).to(theta.dtype),
                                 min=1.0))
     dots = torch.stack([(theta * _shift(phi, off)).sum(-1)
                         for off in offsets], dim=-1)
@@ -109,7 +156,7 @@ def stencil_attention_plain(theta, phi, g, offsets=KERNEL_OFFSETS):
 
     Per voxel, a softmax over the valid stencil neighbours j of
     relu(theta_i . phi_j) / sqrt(deg_i), aggregating g_j, in f32."""
-    theta, phi, g = theta.float(), phi.float(), g.float()
+    theta, phi, g = (_real(t) for t in (theta, phi, g))
     logits, _, _ = _edge_logits(theta, phi, offsets)
     m = logits.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
@@ -121,12 +168,13 @@ def stencil_attention_plain(theta, phi, g, offsets=KERNEL_OFFSETS):
     return out
 
 
-def _check_grid(name, offsets, *ts):
-    """Raise unless the kernel takes these operands: the 18-offset
-    stencil, f32 (B, D, H, W, 8) tensors on one grid, contiguous."""
-    if tuple(offsets) != KERNEL_OFFSETS:
-        raise ValueError(f"{name}: the kernel implements the k=3, "
-                         "connectivity-2, no-self-loop stencil only")
+def _check_ring(name, offsets, *ts):
+    """Raise unless the plane-ring kernels take these operands: the
+    18-offset stencil, f32 (B, D, H, W, 8) tensors on one grid,
+    contiguous."""
+    if tuple(map(tuple, offsets)) != KERNEL_OFFSETS:
+        raise ValueError(f"{name}: the plane-ring kernel implements the "
+                         "k=3, connectivity-2, no-self-loop stencil only")
     shape = tuple(ts[0].shape)
     if len(shape) != 5 or shape[-1] != 8 \
             or any(tuple(t.shape) != shape for t in ts):
@@ -135,6 +183,37 @@ def _check_grid(name, offsets, *ts):
     for k, t in enumerate(ts):
         _build.check_operand(t, torch.float32, f"{name} operand {k}")
     return shape[:4]
+
+
+def _check_generic(name, offsets, fw, gw):
+    """Raise unless the generic kernels take these operands: `fw` the
+    F-wide tensors (theta, phi, ...), `gw` the G-wide ones (g, ybar,
+    ...), f32 (B, D, H, W, width) on one grid, contiguous, and a stencil
+    and widths of generic_takes. Returns ((B, D, H, W), F, G)."""
+    grid = tuple(fw[0].shape[:4])
+    F, G = fw[0].shape[-1], gw[0].shape[-1]
+    if fw[0].dim() != 5 or any(
+            t.dim() != 5 or tuple(t.shape[:4]) != grid for t in fw + gw) \
+            or any(t.shape[-1] != F for t in fw) \
+            or any(t.shape[-1] != G for t in gw):
+        raise ValueError(f"{name}: needs (B, D, H, W, F) and (B, D, H, W, "
+                         f"G) on one grid, got "
+                         f"{[tuple(t.shape) for t in fw + gw]}")
+    if not generic_takes(offsets, F, G):
+        raise ValueError(
+            f"{name}: the generic kernel takes 1..{GENERIC_MAX_K} offsets "
+            f"within {GENERIC_MAX_HALO} of the centre and widths "
+            f"1..{GENERIC_MAX_WIDTH}, got {len(offsets)} offsets, F = {F}, "
+            f"G = {G}")
+    for k, t in enumerate(fw + gw):
+        _build.check_operand(t, torch.float32, f"{name} operand {k}")
+    return grid, F, G
+
+
+def _offsets_arg(offsets):
+    """The offsets as the C launchers take them: (K * 3) int32, host."""
+    flat = [a for o in offsets for a in o]
+    return (ctypes.c_int32 * len(flat))(*flat), len(offsets)
 
 
 def _cdiv(a, b):
@@ -224,11 +303,14 @@ def _args(vals):
 
 
 def _forward(theta, phi, g, offsets):
-    """The forward: CUDA tensors launch csrc/stencil_attention.cu (else
-    raise); CPU tensors take the plain version."""
+    """The forward: CUDA tensors launch the plane ring where it takes
+    them, else the generic kernel (which raises on what it does not
+    take); CPU tensors take the plain version."""
     if not theta.is_cuda:
         return stencil_attention_plain(theta, phi, g, offsets)
-    B, D, H, W = _check_grid("stencil_attention", offsets, theta, phi, g)
+    if not ring_takes(offsets, theta.shape[-1], g.shape[-1]):
+        return stencil_attention_generic(theta, phi, g, offsets)
+    B, D, H, W = _check_ring("stencil_attention", offsets, theta, phi, g)
     out = torch.empty_like(g)
     if out.numel() == 0:
         return out
@@ -238,6 +320,27 @@ def _forward(theta, phi, g, offsets):
                   _args(plan["args"]))
     stencil_attention.launches += 1
     return out
+
+
+def stencil_attention_generic(theta, phi, g, offsets):
+    """Kernel wrapper of stencil_attention_plain on any stencil and widths
+    of generic_takes: CUDA tensors launch csrc/stencil_attention_generic.cu
+    (else raise); CPU tensors take the plain version. Not differentiable
+    by itself: StencilAttentionFunction calls it."""
+    if not theta.is_cuda:
+        return stencil_attention_plain(theta, phi, g, offsets)
+    (B, D, H, W), F, G = _check_generic("stencil_attention_generic",
+                                        offsets, (theta, phi), (g,))
+    out = torch.empty_like(g)
+    offs, K = _offsets_arg(offsets)
+    _build.launch("stencil_attention_generic_f32", theta.data_ptr(),
+                  phi.data_ptr(), g.data_ptr(), out.data_ptr(), B, D, H, W,
+                  F, G, offs, K)
+    stencil_attention_generic.launches += 1
+    return out
+
+
+stencil_attention_generic.launches = 0
 
 
 # --- backward -------------------------------------------------------------------
@@ -250,7 +353,7 @@ def stencil_attention_scal_plain(theta, phi, g, ybar,
     the logits s_ij = relu(theta_i . phi_j) r over the valid neighbours,
     denom = sum_j exp(s_ij - m), c = sum_j a_ij (ybar_i . g_j) with the
     softmax weights a_ij."""
-    theta, phi, g, ybar = (t.float() for t in (theta, phi, g, ybar))
+    theta, phi, g, ybar = (_real(t) for t in (theta, phi, g, ybar))
     logits, _, r = _edge_logits(theta, phi, offsets)
     m = torch.clamp(logits.amax(dim=-1), min=0.0)
     e = torch.exp(logits - m[..., None])
@@ -263,11 +366,15 @@ def stencil_attention_scal_plain(theta, phi, g, ybar,
 
 def stencil_attention_scal(theta, phi, g, ybar, offsets=KERNEL_OFFSETS):
     """Kernel wrapper of stencil_attention_scal_plain: CUDA tensors launch
-    csrc/stencil_attention.cu's statistics pass (f32, F = G = 8, the
-    18-offset stencil, else raise); CPU tensors take the plain version."""
+    csrc/stencil_attention.cu's statistics pass where the plane ring
+    takes them (f32, F = G = 8, the 18-offset stencil), else
+    stencil_attention_scal_generic; CPU tensors take the plain
+    version."""
     if not theta.is_cuda:
         return stencil_attention_scal_plain(theta, phi, g, ybar, offsets)
-    B, D, H, W = _check_grid("stencil_attention_scal", offsets, theta, phi,
+    if not ring_takes(offsets, theta.shape[-1], g.shape[-1]):
+        return stencil_attention_scal_generic(theta, phi, g, ybar, offsets)
+    B, D, H, W = _check_ring("stencil_attention_scal", offsets, theta, phi,
                              g, ybar)
     scal = torch.empty((B, D, H, W, 4), dtype=torch.float32,
                        device=theta.device)
@@ -278,6 +385,26 @@ def stencil_attention_scal(theta, phi, g, ybar, offsets=KERNEL_OFFSETS):
     return scal
 
 
+def stencil_attention_scal_generic(theta, phi, g, ybar, offsets):
+    """Kernel wrapper of stencil_attention_scal_plain on any stencil and
+    widths of generic_takes: CUDA tensors launch
+    csrc/stencil_attention_generic.cu's statistics pass (else raise); CPU
+    tensors take the plain version."""
+    if not theta.is_cuda:
+        return stencil_attention_scal_plain(theta, phi, g, ybar, offsets)
+    (B, D, H, W), F, G = _check_generic(
+        "stencil_attention_scal_generic", offsets, (theta, phi), (g, ybar))
+    scal = torch.empty((B, D, H, W, 4), dtype=torch.float32,
+                       device=theta.device)
+    offs, K = _offsets_arg(offsets)
+    _build.launch("stencil_attention_scal_generic_f32", theta.data_ptr(),
+                  phi.data_ptr(), g.data_ptr(), ybar.data_ptr(),
+                  scal.data_ptr(), B, D, H, W, F, G, offs, K)
+    stencil_attention_scal_generic.launches += 1
+    return scal
+
+
+stencil_attention_scal_generic.launches = 0
 stencil_attention_scal.launches = 0
 
 
@@ -294,7 +421,7 @@ def stencil_attention_bwd_plain(theta, phi, g, ybar, scal,
     u_o(i) = ybar_i . g_{i+o} and ds_o(i) = a_o(i) (u_o(i) - c_i) r_i
     [theta_i . phi_{i+o} > 0]. The -o terms are the +o terms of i = j - o
     rolled to j, masked by the validity of i."""
-    theta, phi, g, ybar, scal = (t.float()
+    theta, phi, g, ybar, scal = (_real(t)
                                  for t in (theta, phi, g, ybar, scal))
     r, m, den, c = (scal[..., k:k + 1] for k in range(4))
     den = torch.clamp(den, min=1e-12)
@@ -317,17 +444,18 @@ def stencil_attention_bwd_plain(theta, phi, g, ybar, scal,
 
 def stencil_attention_bwd(theta, phi, g, ybar, scal, offsets=KERNEL_OFFSETS):
     """Kernel wrapper of stencil_attention_bwd_plain: CUDA tensors launch
-    csrc/stencil_attention.cu's gradient pass (f32, F = G = 8, the
-    18-offset stencil, else raise); CPU tensors take the plain version."""
+    csrc/stencil_attention.cu's gradient pass where the plane ring takes
+    them (f32, F = G = 8, the 18-offset stencil), else
+    stencil_attention_bwd_generic; CPU tensors take the plain version."""
     if not theta.is_cuda:
         return stencil_attention_bwd_plain(theta, phi, g, ybar, scal,
                                            offsets)
-    B, D, H, W = _check_grid("stencil_attention_bwd", offsets, theta, phi,
+    if not ring_takes(offsets, theta.shape[-1], g.shape[-1]):
+        return stencil_attention_bwd_generic(theta, phi, g, ybar, scal,
+                                             offsets)
+    B, D, H, W = _check_ring("stencil_attention_bwd", offsets, theta, phi,
                              g, ybar)
-    if tuple(scal.shape) != (B, D, H, W, 4):
-        raise ValueError(f"stencil_attention_bwd: scal {tuple(scal.shape)} "
-                         f"does not fit {(B, D, H, W)}")
-    _build.check_operand(scal, torch.float32, "stencil_attention_bwd scal")
+    _check_scal("stencil_attention_bwd", scal, (B, D, H, W))
     dtheta, dphi, dg = (torch.empty_like(t) for t in (theta, phi, g))
     if dtheta.numel() == 0:
         return dtheta, dphi, dg
@@ -340,6 +468,36 @@ def stencil_attention_bwd(theta, phi, g, ybar, scal, offsets=KERNEL_OFFSETS):
     return dtheta, dphi, dg
 
 
+def _check_scal(name, scal, grid):
+    if tuple(scal.shape) != (*grid, 4):
+        raise ValueError(f"{name}: scal {tuple(scal.shape)} does not fit "
+                         f"{grid}")
+    _build.check_operand(scal, torch.float32, f"{name} scal")
+
+
+def stencil_attention_bwd_generic(theta, phi, g, ybar, scal, offsets):
+    """Kernel wrapper of stencil_attention_bwd_plain on any stencil and
+    widths of generic_takes: CUDA tensors launch
+    csrc/stencil_attention_generic.cu's gradient pass (else raise), whose
+    dphi and dg gather over i = j - o; CPU tensors take the plain
+    version."""
+    if not theta.is_cuda:
+        return stencil_attention_bwd_plain(theta, phi, g, ybar, scal,
+                                           offsets)
+    (B, D, H, W), F, G = _check_generic(
+        "stencil_attention_bwd_generic", offsets, (theta, phi), (g, ybar))
+    _check_scal("stencil_attention_bwd_generic", scal, (B, D, H, W))
+    dtheta, dphi, dg = (torch.empty_like(t) for t in (theta, phi, g))
+    offs, K = _offsets_arg(offsets)
+    _build.launch("stencil_attention_bwd_generic_f32", theta.data_ptr(),
+                  phi.data_ptr(), g.data_ptr(), ybar.data_ptr(),
+                  scal.data_ptr(), dtheta.data_ptr(), dphi.data_ptr(),
+                  dg.data_ptr(), B, D, H, W, F, G, offs, K)
+    stencil_attention_bwd_generic.launches += 1
+    return dtheta, dphi, dg
+
+
+stencil_attention_bwd_generic.launches = 0
 stencil_attention_bwd.launches = 0
 
 
@@ -369,11 +527,20 @@ class StencilAttentionFunction(torch.autograd.Function):
 
 def stencil_attention(theta, phi, g, offsets=KERNEL_OFFSETS):
     """Kernel wrapper of stencil_attention_plain, differentiable through
-    StencilAttentionFunction: CUDA tensors launch csrc/stencil_attention.cu
-    (f32, F = G = 8, the 18-offset stencil, else raise) forward and
-    backward; CPU tensors take the plain versions."""
+    StencilAttentionFunction: CUDA tensors launch the plane ring (the
+    18-offset stencil, F = G = 8) or the generic kernels (any other
+    stencil and widths they take, else raise), forward and backward; CPU
+    tensors take the plain versions. `.launches` counts the plane ring's
+    forwards."""
     return StencilAttentionFunction.apply(theta, phi, g,
                                           tuple(map(tuple, offsets)))
 
 
 stencil_attention.launches = 0
+
+
+# the generic wrappers' plain twins (chip_smoke swaps each wrapper `w` for
+# `w_plain` in its reference run)
+stencil_attention_generic_plain = stencil_attention_plain
+stencil_attention_scal_generic_plain = stencil_attention_scal_plain
+stencil_attention_bwd_generic_plain = stencil_attention_bwd_plain

@@ -8,8 +8,11 @@ Port of dram_tpu/models/dc3d_at.py:26-167. Selected layers (`at_layers`,
 concatenated (1 + 2 x 8 = 17 channels in the flagship); the dense CAM is
 resized to the attention grid, refined by the PCM and resized back.
 Returns (dense, refined), f32. `.train()` runs the heads' BatchNorm on
-batch statistics (JAX `_ReshapeHead`, :165). `fused_stack` goes to the
-backbone only; the tap heads are the same on both paths.
+batch statistics (JAX `_ReshapeHead`, :165). `fused_stack` and the
+backbone's options (`**backbone`, DC3D's: kernel sizes, paddings, norm,
+activation, dropout, upsampling) go to the backbone only; the tap heads
+are the same on both paths. Every at_* option of dram_tpu reaches the
+PCM, the positional encoding (at_p_enc_dim, at_geo_f_dim) included.
 """
 
 from __future__ import annotations
@@ -41,11 +44,11 @@ class DC3DATGeneric(nn.Module):
                  base_ch_list=(32, 64, 128, 256, 256, 128, 64),
                  end_ch_list=(64, 128, 256, 512, 256, 128, 64),
                  out_ch=1, at_spatial_size=(64, 64, 64), at_f_dim=8,
-                 at_g_dim=8, at_p_enc_dim=0, at_g_iter=1, at_k_size=3,
-                 at_merge_type="scaled_dot_product_relu",
+                 at_g_dim=8, at_p_enc_dim=0, at_geo_f_dim=0, at_g_iter=1,
+                 at_k_size=3, at_merge_type="scaled_dot_product_relu",
                  at_self_loop=False, at_layers=(-1, 0, 1),
                  at_connectivity=2, stacking=3, dtype=torch.float32,
-                 fused_stack=True, pooling_method="avg"):
+                 fused_stack=True, pooling_method="avg", **backbone):
         super().__init__()
         self.pooling_method = pooling_method
         self.n_layers = n_layers
@@ -53,24 +56,32 @@ class DC3DATGeneric(nn.Module):
         self.at_spatial_size = tuple(at_spatial_size)
         self.dtype = dtype
         self.backbone = DC3D(n_layers, base_ch_list, end_ch_list, out_ch,
-                             stacking, dtype=dtype, fused_stack=fused_stack)
+                             stacking, dtype=dtype, fused_stack=fused_stack,
+                             **backbone)
         # encoder taps see end[idx], the bottleneck end[n], decoder
         # output idx end[n + idx]: one head per tapped layer, in tap order
-        tap_ch = [end_ch_list[l] for l in sorted(self.at_layers) if l != -1]
+        # (encoder, bottleneck, decoder: ascending layer index)
+        n_us = stacking if 0 <= stacking < n_layers else n_layers
+        tap_ch = [end_ch_list[l] for l in sorted(self.at_layers)
+                  if 0 <= l <= n_layers + n_us]
         for i, c in enumerate(tap_ch):
             self.add_module(f"reshape_{i}", _ReshapeHead(c, at_f_dim))
         self.reshape_heads = [getattr(self, f"reshape_{i}")
                               for i in range(len(tap_ch))]
         in_ch = (1 if -1 in self.at_layers else 0) + len(tap_ch) * at_f_dim
         self.attention_module = PCM(
-            in_ch=in_ch, g_ch=out_ch, f_dim=at_f_dim, g_dim=at_g_dim,
-            non_local_iter=at_g_iter, k_size=at_k_size,
+            in_ch=in_ch, g_ch=out_ch, f_dim=at_f_dim, geo_f_dim=at_geo_f_dim,
+            g_dim=at_g_dim, non_local_iter=at_g_iter, k_size=at_k_size,
             merge_type=at_merge_type, self_loop=at_self_loop,
             connectivity=at_connectivity, p_enc_dim=at_p_enc_dim)
 
+    def set_dropout_generator(self, generator):
+        """The torch.Generator the backbone's Dropouts draw from."""
+        self.backbone.set_dropout_generator(generator)
+
     def compute_features(self, x):
         """U-Net trunk + tap heads: (dense logits, PCM input features)."""
-        x = x.to(self.dtype)
+        x = x.to(self.dtype).contiguous()
         taps = [x] if -1 in self.at_layers else []
         nc = 0
         bb = self.backbone

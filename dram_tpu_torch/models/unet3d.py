@@ -5,8 +5,13 @@ Port of dram_tpu/models/unet3d.py:35-143: encoder of ConvPool blocks,
 bottleneck, decoder of upsample + [up, skip] blocks with early exit at
 `stacking`, 1x1x1 top layer and an align-corners resize back to the input
 size (:130-135). Stages are methods so DC3DATGeneric can tap them.
-`fused_stack` is the JAX package's use_fused_stack: every conv stack runs
-fused (True) or unfused (False; models/blocks.py).
+`fused_stack` is the JAX package's use_fused_stack: a conv stack runs
+fused where it can (True; blocks.fused_supported) or unfused (False;
+models/blocks.py). The backbone's options are dram_tpu's (:35-90):
+kernel_sizes and padding_list (a per-conv list per level; VALID convs
+crop the skips), norm_method, act_method, dropout (its
+masks from the generator of set_dropout_generator), upsample_sf and
+local_upsample; a stack without a norm has conv biases (:71).
 """
 
 from __future__ import annotations
@@ -16,7 +21,8 @@ from torch import nn
 
 from ..core import ops
 from ..core.resample import resize3d
-from .blocks import Conv1x1, ConvBlock5d, ConvPoolBlock5d, UpsampleConvBlock5d
+from .blocks import (Conv1x1, ConvBlock5d, ConvPoolBlock5d, Dropout,
+                     UpsampleConvBlock5d)
 
 
 class DC3D(nn.Module):
@@ -24,28 +30,48 @@ class DC3D(nn.Module):
                  base_ch_list=(32, 64, 128, 256, 256, 128, 64),
                  end_ch_list=(64, 128, 256, 512, 256, 128, 64),
                  out_ch=1, stacking=0, dtype=torch.float32,
-                 fused_stack=True, pooling_method="avg"):
+                 fused_stack=True, pooling_method="avg",
+                 padding_list=((1, 1),) * 7, kernel_sizes=None,
+                 dropout=0.0, upsample_sf=2, norm_method="bn",
+                 act_method="relu", local_upsample=False):
         super().__init__()
         self.pooling_method = pooling_method
         self.n_layers = n_layers
         self.dtype = dtype
         n, end = n_layers, list(end_ch_list)
+        ks = list(kernel_sizes) if kernel_sizes is not None \
+            else [(3, 3)] * (2 * n + 1)
+        pads = list(padding_list)
+
+        def opts(i):
+            return dict(kernel_sizes=ks[i], paddings=pads[i],
+                        norm_method=norm_method, act_method=act_method,
+                        dropout=dropout)
         ins = [1] + end[:n - 1]  # one CT channel in
         # the decoder exits early at `stacking`; only the levels it runs
         # exist (as in the flax tree, whose names the submodules keep)
         n_us = stacking if 0 <= stacking < n else n
         for i in range(n):
             self.add_module(f"ds_{i}", ConvPoolBlock5d(
-                ins[i], (base_ch_list[i], end[i]), fused_stack))
+                ins[i], (base_ch_list[i], end[i]), fused_stack, **opts(i)))
         self.bg = ConvBlock5d(end[n - 1], (base_ch_list[n], end[n]),
-                              fused_stack)
+                              fused_stack, **opts(n))
         for i in range(n_us):
             self.add_module(f"us_{i}", UpsampleConvBlock5d(
                 end[n + i] + end[n - 1 - i],
-                (base_ch_list[n + 1 + i], end[n + 1 + i]), fused_stack))
+                (base_ch_list[n + 1 + i], end[n + 1 + i]), fused_stack,
+                scale_factor=upsample_sf, local_upsample=local_upsample,
+                **opts(n + 1 + i)))
         self.ds_modules = [getattr(self, f"ds_{i}") for i in range(n)]
         self.us_modules = [getattr(self, f"us_{i}") for i in range(n_us)]
         self.top_layer = Conv1x1(end[n + n_us], out_ch)
+
+    def set_dropout_generator(self, generator):
+        """The torch.Generator every Dropout of the model draws its keep
+        masks from (on the model's device)."""
+        for m in self.modules():
+            if isinstance(m, Dropout):
+                m.generator = generator
 
     def encoder(self, x):
         """Returns (pre-pool feature list, pooled output)."""
@@ -75,7 +101,7 @@ class DC3D(nn.Module):
 
     def forward(self, x):
         """x: (B, D, H, W, 1) -> (dense, dense) f32 logits."""
-        x = x.to(self.dtype)
+        x = x.to(self.dtype).contiguous()
         feats, h = self.encoder(x)
         us_feats = self.decoder(self.bottleneck(h), feats)
         dense = self.top(us_feats[-1], x.shape[1:4])

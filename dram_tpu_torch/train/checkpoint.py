@@ -8,14 +8,29 @@ that dram_tpu's checkpoints load in the port and the port's in dram_tpu.
 Trees hold flax names and layouts: weights.to_jax maps a model's
 state_dict into one, weights.load_into back.
 
-`adam_state_tree` / `load_adam_state` map torch.optim.Adam's state to and
-from the tree that flax.serialization.to_state_dict makes of the JAX
-trainer's optax `inject_hyperparams(adam)` state (its checkpoints'
-"optimizer" entry): `count` (int32), `hyperparams` (learning_rate, b1,
-b2, eps, eps_root as f32 scalars), `hyperparams_states` {} and
-`inner_state` {"0": {count, mu, nu}, "1": {}}, with mu and nu in the
-parameters' flax names and layouts. Torch's per-parameter step,
-exp_avg and exp_avg_sq are optax's count, mu and nu.
+`optimizer_state_tree` / `load_optimizer_state` map the port's optimizer
+state to and from the tree that flax.serialization.to_state_dict makes
+of the JAX trainer's optax state (its checkpoints' "optimizer" entry),
+for each optimizer dram_tpu configures (dram_tpu/train/trainer.py:164-176,
+326-358):
+
+- Adam, `inject_hyperparams(adam)`: `count` (int32), `hyperparams`
+  (learning_rate, b1, b2, eps, eps_root as f32 scalars),
+  `hyperparams_states` {} and `inner_state` {"0": {count, mu, nu},
+  "1": {}}, with mu and nu in the parameters' flax names and layouts;
+- AdamW (Adam with weight_decay): hyperparams also hold weight_decay,
+  inner_state {"0": {count, mu, nu}, "1": {}, "2": {}};
+- SGD: hyperparams learning_rate (and momentum when it is non-zero),
+  inner_state {"0": {"trace": ...}, "1": {}} with momentum, else
+  {"0": {}, "1": {}};
+- groups (optax.multi_transform): {"inner_states": {label:
+  {"inner_state": the group's state}}}, each group's trees holding every
+  parameter's name, with {} (optax's MaskedNode) for the parameters of
+  other groups.
+
+Torch's exp_avg, exp_avg_sq and momentum_buffer are optax's mu, nu and
+trace; a group's "count" (trainer._with_counts) and Adam's per-parameter
+step are optax's count.
 """
 
 from __future__ import annotations
@@ -26,6 +41,7 @@ import os
 import numpy as np
 import torch
 
+from .. import weights
 from ..weights import from_jax, msgpack_packb, msgpack_unpackb, to_jax
 
 
@@ -104,70 +120,168 @@ def tolerant_merge(current, saved, ignored_keys=(), overwrite=False,
     return out
 
 
-def _named_params(optimizer, model):
-    """(name, parameter) of `model` in the order of the optimizer's one
-    parameter group, which must hold exactly the model's parameters."""
-    named = list(model.named_parameters())
-    groups = optimizer.param_groups
-    if len(groups) != 1 or len(groups[0]["params"]) != len(named) or any(
-            p is not q for p, (_, q) in zip(groups[0]["params"], named)):
-        raise ValueError("the optimizer must hold the model's parameters "
-                         "in one group, in the model's order")
-    return named
+def _kind(optimizer, group):
+    """The optax transform of one group: adam, adamw (Adam with a weight
+    decay: dram_tpu builds optax's adamw for a group whose settings
+    decay, adam otherwise) or sgd."""
+    if isinstance(optimizer, torch.optim.SGD):
+        return "sgd"
+    if isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)):
+        return "adamw" if group.get("weight_decay") else "adam"
+    raise ValueError(f"no optax layout for {type(optimizer).__name__}")
 
 
-def adam_state_tree(optimizer, model):
-    """torch.optim.Adam's state over `model`'s parameters -> the flax
-    state dict of optax's inject_hyperparams(adam) state (numpy)."""
-    named = _named_params(optimizer, model)
-    group = optimizer.param_groups[0]
-    mu, nu, count = {}, {}, 0
-    for name, p in named:
+def _group_names(optimizer, model):
+    """[(group, [(name, parameter), ...])] in the optimizer's group order:
+    together the groups must hold exactly the model's parameters."""
+    by_id = {id(p): n for n, p in model.named_parameters()}
+    out, seen = [], set()
+    for g in optimizer.param_groups:
+        named = []
+        for p in g["params"]:
+            if id(p) not in by_id:
+                raise ValueError("the optimizer holds a parameter that is "
+                                 "not the model's")
+            named.append((by_id[id(p)], p))
+            seen.add(id(p))
+        out.append((g, named))
+    if len(seen) != len(by_id):
+        raise ValueError("the optimizer's groups must hold every parameter "
+                         "of the model")
+    if len(out) > 1 and any("label" not in g for g in optimizer.param_groups):
+        raise ValueError("optimizer groups need their 'label'")
+    return out
+
+
+def _masked_tree(values, names_all, params):
+    """Flax-named tree of `values` ({name: tensor}) over every name of
+    `names_all`, {} where a name has no value (a masked parameter)."""
+    tree = to_jax(values)[0]
+    for name in names_all:
+        if name in values:
+            continue
+        node = tree
+        *mods, leaf = weights.flax_path(name, params[name].dim())
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = {}
+    return tree
+
+
+def _count(group, named, optimizer):
+    if "count" in group:
+        return int(group["count"])
+    for _, p in named:
         st = optimizer.state.get(p) or {}
-        mu[name] = st.get("exp_avg", torch.zeros_like(p))
-        nu[name] = st.get("exp_avg_sq", torch.zeros_like(p))
-        count = int(st["step"]) if "step" in st else 0
-    mu_tree, nu_tree = to_jax(mu)[0], to_jax(nu)[0]
-    b1, b2 = group["betas"]
+        if "step" in st:
+            return int(st["step"])
+    return 0
+
+
+def _state_of(kind, optimizer, group, named, names_all, params):
+    """The optax state of one group (an inject_hyperparams state)."""
     f32 = np.float32
-    return {"count": np.asarray(count, np.int32),
-            "hyperparams": {"learning_rate": np.asarray(group["lr"], f32),
-                            "b1": np.asarray(b1, f32),
-                            "b2": np.asarray(b2, f32),
-                            "eps": np.asarray(group["eps"], f32),
-                            "eps_root": np.asarray(0.0, f32)},
-            "hyperparams_states": {},
-            "inner_state": {"0": {"count": np.asarray(count, np.int32),
-                                  "mu": mu_tree, "nu": nu_tree},
-                            "1": {}}}
+    count = np.asarray(_count(group, named, optimizer), np.int32)
+    hyper = {"learning_rate": np.asarray(group["lr"], f32)}
+    if kind in ("adam", "adamw"):
+        mu, nu = {}, {}
+        for name, p in named:
+            st = optimizer.state.get(p) or {}
+            mu[name] = st.get("exp_avg", torch.zeros_like(p))
+            nu[name] = st.get("exp_avg_sq", torch.zeros_like(p))
+        b1, b2 = group["betas"]
+        hyper.update(b1=np.asarray(b1, f32), b2=np.asarray(b2, f32),
+                     eps=np.asarray(group["eps"], f32),
+                     eps_root=np.asarray(0.0, f32))
+        inner = {"0": {"count": count,
+                       "mu": _masked_tree(mu, names_all, params),
+                       "nu": _masked_tree(nu, names_all, params)},
+                 "1": {}}
+        if kind == "adamw":
+            hyper["weight_decay"] = np.asarray(group["weight_decay"], f32)
+            inner["2"] = {}
+    elif group["momentum"]:
+        trace = {}
+        for name, p in named:
+            st = optimizer.state.get(p) or {}
+            buf = st.get("momentum_buffer")
+            trace[name] = torch.zeros_like(p) if buf is None else buf
+        hyper["momentum"] = np.asarray(group["momentum"], f32)
+        inner = {"0": {"trace": _masked_tree(trace, names_all, params)},
+                 "1": {}}
+    else:
+        inner = {"0": {}, "1": {}}
+    return {"count": count, "hyperparams": hyper, "hyperparams_states": {},
+            "inner_state": inner}
 
 
-def load_adam_state(optimizer, model, tree):
-    """Load the tree of adam_state_tree (or one that the JAX trainer
-    saved) into torch.optim.Adam over `model`'s parameters: step, exp_avg
-    and exp_avg_sq per parameter; lr, betas and eps from the
-    hyperparameters where they differ from the group's beyond f32
-    rounding. Raises on a tree of other names or shapes."""
-    named = _named_params(optimizer, model)
-    inner = tree["inner_state"]["0"]
-    mu, nu = from_jax(inner["mu"], {}), from_jax(inner["nu"], {})
+def optimizer_state_tree(optimizer, model):
+    """The port's optimizer state over `model`'s parameters -> the flax
+    state dict of dram_tpu's optax state for the same OPTIMIZER
+    (numpy)."""
+    groups = _group_names(optimizer, model)
+    params = dict(model.named_parameters())
+    names_all = list(params)
+    if len(groups) == 1 and "label" not in groups[0][0]:
+        g, named = groups[0]
+        return _state_of(_kind(optimizer, g), optimizer, g, named,
+                         names_all, params)
+    return {"inner_states": {
+        g["label"]: {"inner_state": _state_of(_kind(optimizer, g), optimizer,
+                                              g, named, names_all, params)}
+        for g, named in groups}}
+
+
+def _unmasked(tree):
+    """A flax-named tree without its {} leaves (masked parameters)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            if v:
+                sub = _unmasked(v)
+                if sub:
+                    out[k] = sub
+        else:
+            out[k] = v
+    return out
+
+
+def _load_group(kind, group, named, st, state_by_index, index_of):
+    """Load one group's optax state `st` into the per-parameter states
+    (keyed by the optimizer's parameter index) and the group dict."""
+    inner = st["inner_state"]
     names = [n for n, _ in named]
-    if sorted(mu) != sorted(names) or sorted(nu) != sorted(names):
-        raise ValueError("the optimizer state's parameters differ from the "
-                         "model's")
-    step = float(np.asarray(inner["count"]))
-    state = {}
-    for i, (name, p) in enumerate(named):
-        if mu[name].shape != p.shape or nu[name].shape != p.shape:
-            raise ValueError(f"optimizer state of {name}: shape "
-                             f"{tuple(mu[name].shape)}, parameter "
-                             f"{tuple(p.shape)}")
-        state[i] = {"step": torch.tensor(step, dtype=torch.float32),
-                    "exp_avg": mu[name].to(p.dtype),
-                    "exp_avg_sq": nu[name].to(p.dtype)}
-    sd = optimizer.state_dict()
-    group = dict(sd["param_groups"][0])
-    hyper = tree.get("hyperparams", {})
+    count = float(np.asarray(st.get("count", 0)))
+    if kind in ("adam", "adamw"):
+        mu = from_jax(_unmasked(inner["0"]["mu"]), {})
+        nu = from_jax(_unmasked(inner["0"]["nu"]), {})
+        if sorted(mu) != sorted(names) or sorted(nu) != sorted(names):
+            raise ValueError("the optimizer state's parameters differ from "
+                             "the model's")
+        count = float(np.asarray(inner["0"]["count"]))
+        for name, p in named:
+            if mu[name].shape != p.shape or nu[name].shape != p.shape:
+                raise ValueError(f"optimizer state of {name}: shape "
+                                 f"{tuple(mu[name].shape)}, parameter "
+                                 f"{tuple(p.shape)}")
+            state_by_index[index_of[id(p)]] = {
+                "step": torch.tensor(count, dtype=torch.float32),
+                "exp_avg": mu[name].to(p.dtype),
+                "exp_avg_sq": nu[name].to(p.dtype)}
+    elif "trace" in inner.get("0", {}):
+        trace = from_jax(_unmasked(inner["0"]["trace"]), {})
+        if sorted(trace) != sorted(names):
+            raise ValueError("the optimizer state's parameters differ from "
+                             "the model's")
+        for name, p in named:
+            if trace[name].shape != p.shape:
+                raise ValueError(f"optimizer state of {name}: shape "
+                                 f"{tuple(trace[name].shape)}, parameter "
+                                 f"{tuple(p.shape)}")
+            state_by_index[index_of[id(p)]] = {
+                "momentum_buffer": trace[name].to(p.dtype)}
+    group["count"] = int(count)
+    hyper = st.get("hyperparams", {})
 
     def pick(current, key):
         if key not in hyper:
@@ -175,7 +289,46 @@ def load_adam_state(optimizer, model, tree):
         saved = float(np.asarray(hyper[key]))
         return current if np.float32(current) == np.float32(saved) else saved
     group["lr"] = pick(group["lr"], "learning_rate")
-    group["betas"] = (pick(group["betas"][0], "b1"),
-                      pick(group["betas"][1], "b2"))
-    group["eps"] = pick(group["eps"], "eps")
-    optimizer.load_state_dict({"state": state, "param_groups": [group]})
+    if kind in ("adam", "adamw"):
+        group["betas"] = (pick(group["betas"][0], "b1"),
+                          pick(group["betas"][1], "b2"))
+        group["eps"] = pick(group["eps"], "eps")
+        if kind == "adamw":
+            group["weight_decay"] = pick(group["weight_decay"],
+                                         "weight_decay")
+    elif "momentum" in hyper:
+        group["momentum"] = pick(group["momentum"], "momentum")
+
+
+def load_optimizer_state(optimizer, model, tree):
+    """Load the tree of optimizer_state_tree (or one that the JAX trainer
+    saved for the same OPTIMIZER) into the port's optimizer over
+    `model`'s parameters: the per-parameter moments or traces, the
+    counts, and lr, betas, eps, weight decay and momentum from the
+    hyperparameters where they differ from the group's beyond f32
+    rounding. Raises on a tree of other names, shapes or groups."""
+    groups = _group_names(optimizer, model)
+    sd = optimizer.state_dict()
+    new_groups = [dict(g) for g in sd["param_groups"]]
+    index_of, i = {}, 0
+    for g in optimizer.param_groups:
+        for p in g["params"]:
+            index_of[id(p)] = i
+            i += 1
+    state = {}
+    if "inner_states" in tree:
+        saved = tree["inner_states"]
+        labels = [g.get("label") for g, _ in groups]
+        if sorted(saved) != sorted(labels):
+            raise ValueError(f"the checkpoint's optimizer groups "
+                             f"{sorted(saved)} differ from {sorted(labels)}")
+        for ng, (g, named) in zip(new_groups, groups):
+            _load_group(_kind(optimizer, g), ng, named,
+                        saved[g["label"]]["inner_state"], state, index_of)
+    else:
+        if len(groups) != 1:
+            raise ValueError("the checkpoint holds one optimizer state, the "
+                             "optimizer has groups")
+        _load_group(_kind(optimizer, groups[0][0]), new_groups[0],
+                    groups[0][1], tree, state, index_of)
+    optimizer.load_state_dict({"state": state, "param_groups": new_groups})

@@ -113,8 +113,8 @@ class LesionSegChunkTrain(JobRunner):
                            os.path.join(s.DB_PATH, "wss_chunk", "memo.csv"))
         tr_dataset = ds_cls(s.DB_PATH, ds_cls.get_series_uids(memo_csv),
                             transforms=self.get_data_transforms(True))
-        # the loss's epoch-static transform draw (the equivariance losses,
-        # ROADMAP Queue 1 item 4), where the loss has one
+        # the loss's epoch-static transform draw (the equivariance
+        # losses), where the loss has one
         if hasattr(self.loss_func, "epoch_reseed"):
             self.loss_func.epoch_reseed(seed + 7919 * self.epoch_n)
         sampler = sampler_cls(
@@ -143,9 +143,13 @@ class LesionSegChunkTrain(JobRunner):
             transforms=self.get_data_transforms(False), keep_sorted=True)
 
     # -- train ---------------------------------------------------------
-    def _dump_train_trace(self, images, lobes, step_idx, max_samples=2):
+    def _dump_train_trace(self, images, lobes, step_idx, transform_state,
+                          max_samples=2):
         """Dense and refined CAM tiles of the training batch's first
-        samples, from an eval forward (TRACE)."""
+        samples, from an eval forward (TRACE); for an equivariance loss
+        also the transformed image's tiles and the drawn transform
+        (dram_tpu/train/trainer.py:787-829), redrawn from the step's
+        transform generator state `transform_state`."""
         trace_dir = os.path.join(self.debug_path, "train_trace",
                                  f"{self.epoch_n}_{step_idx}")
         os.makedirs(trace_dir, exist_ok=True)
@@ -169,6 +173,19 @@ class LesionSegChunkTrain(JobRunner):
                    lo_np[i]).astype(np.uint8)]],
                 r_np[i] > 0, 5, os.path.join(trace_dir, f"sample_{i}"),
                 titles=["dram", "dram_refine"])
+        if hasattr(self.loss_func, "_transform"):
+            gen = torch.Generator()
+            gen.set_state(transform_state)
+            T = self.loss_func._transform(gen, images.shape[1:4])
+            aff = T(images[:max_samples]).float().cpu().numpy()[..., 0]
+            for i in range(aff.shape[0]):
+                draw_mask_tile_singleview_heatmap(
+                    windowing_np(aff[i], from_span=(0, 1)).astype(np.uint8),
+                    [[np.zeros_like(aff[i], np.uint8)]], aff[i] > -1e8, 5,
+                    os.path.join(trace_dir, f"sample_{i}_transformed"),
+                    titles=["transformed"])
+            with open(os.path.join(trace_dir, "transform.txt"), "wt") as fp:
+                fp.write(f"{T!r}\n")
 
     def train(self):
         """One epoch of steps. Returns tr_loss (the sample-weighted mean
@@ -196,6 +213,7 @@ class LesionSegChunkTrain(JobRunner):
                 self.loss_func.epoch_reseed(
                     seed + 7919 * self.epoch_n + 104729 * step_idx)
             self.scheduler.apply(self.optimizer)
+            transform_state = self.train_step.transform_gen.get_state()
             out = self.train_step(**args, timed=False)
             self.current_iteration += 1
             if peak is not None:
@@ -205,7 +223,7 @@ class LesionSegChunkTrain(JobRunner):
                 try:
                     self._dump_train_trace(
                         unpack_image_wire(args["images"], args["span"]),
-                        args["lobes"], step_idx)
+                        args["lobes"], step_idx, transform_state)
                 except Exception as e:
                     self.logger.warning(f"train trace failed: {e}")
             if pending is not None:

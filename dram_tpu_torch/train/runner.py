@@ -15,8 +15,8 @@ validation: the JAX runner's two flax modules over one parameter tree
 (:303-313) become its train and eval modes, so no weights are copied.
 
 The multi-device options raise, naming their ROADMAP Queue 1 item:
-optimizer parameter groups (item 4), DCN_MESH_SIZE, DP_BATCH_MODE other
-than "pad" and PER_PROCESS_LOADING (item 5).
+DCN_MESH_SIZE, DP_BATCH_MODE other than "pad" and PER_PROCESS_LOADING
+(item 5). Optimizer groups (OPTIMIZER["groups"]) are trainer.build_optimizer's.
 """
 
 from __future__ import annotations
@@ -32,9 +32,10 @@ from .. import require_cuda, weights
 from ..configs import get_callable_by_name
 from ..utils import Settings, get_value_recursively
 from ..viz import SummaryWriter
-from .checkpoint import (adam_state_tree, load_adam_state, load_checkpoint,
-                         newest_checkpoint, save_checkpoint, tolerant_merge)
-from .trainer import ExponentialLR, TrainStep, build_model
+from .checkpoint import (load_checkpoint, load_optimizer_state,
+                         newest_checkpoint, optimizer_state_tree,
+                         save_checkpoint, tolerant_merge)
+from .trainer import ExponentialLR, TrainStep, build_model, build_optimizer
 
 
 class JobRunner:
@@ -88,11 +89,6 @@ class JobRunner:
         """After init: the optimizer, scheduler (its lr written into the
         optimizer), loss, TrainStep, train wire and SummaryWriter."""
         s = self.settings
-        opt_cfg = dict(s.OPTIMIZER)
-        if opt_cfg.pop("groups", None):
-            raise NotImplementedError(
-                "OPTIMIZER['groups'] (per-parameter-group optimizers) is not "
-                "ported (ROADMAP Queue 1 item 4)")
         for name, off in (("DCN_MESH_SIZE", None),
                           ("PER_PROCESS_LOADING", None)):
             if getattr(s, name, off) not in (off, False):
@@ -111,8 +107,7 @@ class JobRunner:
                              f"got {self.train_wire!r}")
         self.loader_batch_size = int(getattr(s, "TRAIN_BATCH_SIZE", 1))
 
-        opt_fn = get_callable_by_name(opt_cfg.pop("method"))
-        self.optimizer = opt_fn(self.model.parameters(), **opt_cfg)
+        self.optimizer = build_optimizer(self.model, s.OPTIMIZER)
         sched_cfg = dict(getattr(s, "SCHEDULER", {
             "method": "torch.optim.lr_scheduler.ExponentialLR",
             "gamma": 0.9}))
@@ -125,7 +120,8 @@ class JobRunner:
         self.loss_func = get_callable_by_name(loss_cfg.pop("method"))(
             **loss_cfg)
         self.train_step = TrainStep(self.model, self.loss_func,
-                                    self.optimizer, s.LOSS_FACTORS)
+                                    self.optimizer, s.LOSS_FACTORS,
+                                    int(getattr(s, "RANDOM_SEED", 33)))
         if getattr(s, "USE_GRAD_SCALER", False):
             self.logger.info("USE_GRAD_SCALER requested: bf16 keeps the f32 "
                              "exponent range, no loss scaling; ignored")
@@ -157,12 +153,13 @@ class JobRunner:
 
     def update_model_state(self, **kwargs):
         """The checkpoint tree, in the JAX trainer's layout: epoch,
-        iteration, model, optimizer (optax's adam state), scheduler and
+        iteration, model, optimizer (optax's state layout), scheduler and
         metrics."""
         state = {"epoch": self.epoch_n,
                  "iteration": self.current_iteration,
                  "model": self.model_state_tree(),
-                 "optimizer": adam_state_tree(self.optimizer, self.model),
+                 "optimizer": optimizer_state_tree(self.optimizer,
+                                                   self.model),
                  "scheduler": self.scheduler.state_dict(),
                  "metrics": dict(self.model_metrics_save_dict)}
         state.update(kwargs)
@@ -179,7 +176,7 @@ class JobRunner:
         newest checkpoint of exp_path; raises when there is none): the
         entries of RELOAD_DICT_LIST ("model" through tolerant_merge: saved
         arrays of another shape, or missing, keep the model's;
-        "optimizer" into the Adam of init_training; "metrics"), the
+        "optimizer" into the optimizer of init_training; "metrics"), the
         scheduler's state whenever the checkpoint has one and a scheduler
         exists, and the epoch and iteration."""
         s = self.settings
@@ -205,8 +202,8 @@ class JobRunner:
         if "optimizer" in reload_keys and "optimizer" in saved \
                 and self.optimizer is not None:
             try:
-                load_adam_state(self.optimizer, self.model,
-                                saved["optimizer"])
+                load_optimizer_state(self.optimizer, self.model,
+                                     saved["optimizer"])
                 self.logger.info("=> loaded optimizer")
             except (KeyError, ValueError) as e:
                 self.logger.warning(f"optimizer reload failed ({e}); fresh "

@@ -2,13 +2,20 @@
 
 Port of the single-device core of dram_tpu/train/trainer.py: the wire
 (`unpack_image_wire` :88, `pack_train_batch` :107, `MaskWireLatch` :61),
-the optimizer and scheduler registry targets (`adam` :164,
-`ExponentialLR` :177 with its state :192-200), `fix_random_seeds` (:206)
+the optimizer and scheduler registry targets (`adam` :164 with and
+without weight decay, `sgd` :172, `ExponentialLR` :177 with its state
+:192-200, per-group learning rates :462-480), optimizer groups
+(`build_optimizer`: OPTIMIZER["groups"], :326-358), `fix_random_seeds`
+(:206)
 and the body of `_build_train_step` / `train_step` (:483-578) as
 `TrainStep`: the loss drives the model through a `model_fn` closure, the
 objective is sum(factor * loss) with the arity check of :533-542, then
-the backward through the port's kernels, the Adam step and the BatchNorm
-running-stat update (done by the model's train-mode forward).
+the backward through the port's kernels, the optimizer step and the
+BatchNorm running-stat update (done by the model's train-mode forward).
+Dropout masks and the equivariance losses' transforms draw from the
+step's own torch.Generators, seeded from RANDOM_SEED (dram_tpu draws
+both from the step's jax.random key: equal distributions, other
+draws).
 `train_steps` builds model, initializer or weights, optimizer and loss
 from a settings module (dram_tpu_torch/configs) and runs a few steps; the
 epoch loop is train/chunk_train.py. Not ported: the multi-device mesh
@@ -107,16 +114,86 @@ def pack_train_batch(batch, wire="f32", mask_latch=None):
 # --- registry targets of the OPTIMIZER / SCHEDULER settings -------------------
 
 
+def _groups(params):
+    """torch.optim's parameter list or list of group dicts, as a list of
+    group dicts."""
+    params = list(params)
+    if params and isinstance(params[0], dict):
+        return params
+    return [{"params": params}]
+
+
+def _with_counts(opt):
+    """Each group keeps its base lr (ExponentialLR scales it) and the
+    count of steps taken (optax's `count`; torch's SGD keeps none)."""
+    for g in opt.param_groups:
+        g.setdefault("base_lr", g["lr"])
+        g.setdefault("count", 0)
+
+    def count(o, args, kwargs):
+        for g in o.param_groups:
+            g["count"] = int(g.get("count", 0)) + 1
+    opt.register_step_post_hook(count)
+    return opt
+
+
 def adam(params, lr=1e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0,
          **kw):
     """OPTIMIZER "torch.optim.Adam": optax's adam, whose update is
-    torch.optim.Adam's formula. Weight decay (optax's adamw) is not
-    ported: no configuration sets it."""
-    if weight_decay:
-        raise NotImplementedError(
-            f"OPTIMIZER weight_decay={weight_decay!r}: only Adam without "
-            "weight decay is ported")
-    return torch.optim.Adam(params, lr=lr, betas=betas, eps=eps)
+    torch.optim.Adam's formula; with weight_decay optax's adamw (mask
+    None: every parameter decays), whose update is torch.optim.AdamW's,
+    p <- p - lr (adam(g) + wd p). `params` may be parameter-group dicts
+    (build_optimizer); when any group decays, AdamW serves every group
+    (wd 0: Adam's update)."""
+    groups = _groups(params)
+    decays = any(g.get("weight_decay", weight_decay) for g in groups)
+    cls = torch.optim.AdamW if decays else torch.optim.Adam
+    return _with_counts(cls(groups, lr=lr, betas=tuple(betas), eps=eps,
+                            weight_decay=weight_decay))
+
+
+def sgd(params, lr=1e-4, momentum=0.0, **kw):
+    """OPTIMIZER "torch.optim.SGD": optax's sgd, momentum None when 0;
+    its trace t <- g + momentum t (from 0) is torch.optim.SGD's momentum
+    buffer (which starts at g), and the update is -lr t."""
+    groups = _groups(params)
+    for g in groups:
+        g["momentum"] = float(g.get("momentum", momentum) or 0.0)
+    return _with_counts(torch.optim.SGD(groups, lr=lr,
+                                        momentum=float(momentum or 0.0)))
+
+
+def group_label(path, keys):
+    """The group of a parameter as dram_tpu's label_of_path (:344-350)
+    gives it: the first key that is a substring of a component of the
+    parameter's flax path, else "__default__"."""
+    for key in keys:
+        if any(key in c for c in path):
+            return key
+    return "__default__"
+
+
+def build_optimizer(model, opt_cfg):
+    """The optimizer of OPTIMIZER over `model`'s parameters. With
+    "groups" ({key: overrides}, dram_tpu's optax.multi_transform): a
+    parameter whose flax path (weights.flax_path) has a component
+    containing a key joins that key's group, with the base settings
+    updated by its overrides; the rest form "__default__", the first
+    group, whose lr the scheduler's base is. Each group carries its
+    "label"."""
+    fn, cfg = _method(opt_cfg)
+    groups = cfg.pop("groups", None)
+    if not groups:
+        return fn(model.parameters(), **cfg)
+    keys = list(groups)
+    members = {k: [] for k in ["__default__"] + keys}
+    for name, p in model.named_parameters():
+        members[group_label(weights.flax_path(name, p.dim()),
+                            keys)].append(p)
+    param_groups = [dict({"params": ps, "label": k}, **dict(groups.get(k,
+                                                                      {})))
+                    for k, ps in members.items()]
+    return fn(param_groups, **cfg)
 
 
 class ExponentialLR:
@@ -137,8 +214,13 @@ class ExponentialLR:
         return self.base_lr * (self.gamma ** self.steps)
 
     def apply(self, optimizer):
+        """Every group's lr = its base lr scaled by the same decay factor
+        (dram_tpu's _set_lr; torch's ExponentialLR multiplies each
+        group's lr by gamma)."""
+        scale = self.lr / self.base_lr if self.base_lr else 0.0
         for group in optimizer.param_groups:
-            group["lr"] = self.lr
+            base = group.get("base_lr")
+            group["lr"] = self.lr if base is None else base * scale
 
     def state_dict(self):
         return {"steps": self.steps, "base_lr": self.base_lr,
@@ -192,11 +274,16 @@ class TrainStep:
     step. The model's train-mode forward updates the BatchNorm running
     statistics."""
 
-    def __init__(self, model, loss_func, optimizer, loss_factors):
+    def __init__(self, model, loss_func, optimizer, loss_factors, seed=33):
         self.model = model
         self.loss_func = loss_func
         self.optimizer = optimizer
         self.factors = [float(f) for f in loss_factors]
+        device = next(model.parameters()).device
+        # dropout masks (on the model's device) and the loss's transform
+        # decisions (host) draw from these, step after step
+        self.dropout_gen = torch.Generator(device=device).manual_seed(seed)
+        self.transform_gen = torch.Generator().manual_seed(seed)
 
     def __call__(self, images, lobes, lesions, ctss, freq, weights=None,
                  span=None, timed=True):
@@ -219,11 +306,15 @@ class TrainStep:
         clock = _StageClock(device)
         clock.mark()
 
+        if hasattr(self.model, "set_dropout_generator"):
+            self.model.set_dropout_generator(self.dropout_gen)
+
         def model_fn(im, lo):
             return self.model(im)
 
         losses = self.loss_func(model_fn, images, lobes, lesions, ctss,
-                                ctss_frequency=freq, sample_weight=weights)
+                                ctss_frequency=freq, rng=self.transform_gen,
+                                sample_weight=weights)
         # extra factors are legal (the reference ships 4 for the 2-term
         # IntRegRefineLoss); fewer would silently drop a loss term
         if len(losses) > len(self.factors):
@@ -234,6 +325,12 @@ class TrainStep:
         total = sum(l * f for l, f in zip(losses, self.factors))
         clock.mark()
         total.backward()
+        # optax updates every parameter, a zero gradient included (Adam's
+        # moments decay, AdamW decays the weight): a parameter the loss
+        # does not reach (the PCM under IntRegAffLoss) gets a zero one
+        for p in self.model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         clock.mark()
         self.optimizer.step()
         clock.mark()
@@ -255,22 +352,25 @@ def _method(cfg):
     return get_callable_by_name(cfg.pop("method")), cfg
 
 
-# the DC3DATGeneric settings the port's model takes (dram_tpu's names)
-_AT_KEYS = ("at_spatial_size", "at_f_dim", "at_g_dim", "at_p_enc_dim",
-            "at_g_iter", "at_k_size", "at_merge_type", "at_self_loop",
-            "at_layers", "at_connectivity")
+# MODEL settings that dram_tpu's modules take and use for no value
+# (flax infers input widths; remat changes no value; the upsample kernel
+# size and the class count are unused fields)
+_UNUSED_KEYS = ("in_ch_list", "checkpoint_layers", "upsample_ksize",
+                "out_cls_ch")
 
 
 def build_model(settings, dtype):
-    """DC3D or DC3DATGeneric from settings.MODEL (on the CPU). The port's
-    backbone is the shipped one: 3x3x3 SAME convs, no dropout, 2x
-    upsampling; its PCM the shipped 'scaled_dot_product_relu' stencil
-    attention without positional encoding. Other values raise, naming
-    the ROADMAP item that ports them.
+    """DC3D or DC3DATGeneric from settings.MODEL (on the CPU), with every
+    option dram_tpu's modules take: the backbone's (kernel_sizes,
+    padding_list, norm_method, act_method, dropout, upsample_sf,
+    local_upsample) and the PCM's (at_*: any stencil, merge type,
+    widths, positional encoding). A key neither module has raises
+    TypeError, as flax does.
 
     settings.USE_FUSED_STACK (the JAX trainer's name, trainer.py:293-311)
     chooses the fused or the unfused conv stack for the training and the
-    eval model alike; it defaults to True, the counterpart of the JAX
+    eval model alike (a stack the fused kernels do not compute runs
+    unfused either way); it defaults to True, the counterpart of the JAX
     package's accelerator default. USE_PALLAS_CONV only chooses which
     implementation the JAX package runs for the unfused stack's conv (its
     Pallas kernel or XLA's); the port runs its own kernel either way
@@ -280,60 +380,48 @@ def build_model(settings, dtype):
     if cls not in (DC3D, DC3DATGeneric):
         raise NotImplementedError(f"training {cls.__name__} is not ported "
                                   "(ROADMAP Queue 1)")
-    if (cfg.get("dropout", 0.0)
-            or any(tuple(k) != (3, 3) for k in cfg.get("kernel_sizes", []))
-            or any(tuple(p) != (1, 1) for p in cfg.get("padding_list", []))
-            or any(f != 2 for f in cfg.get("upsample_sf", (2, 2, 2)))):
-        raise NotImplementedError(
-            "only the shipped DC3D backbone (3x3x3 SAME convs, no dropout, "
-            "2x upsampling) is ported (ROADMAP Queue 1 item 6), got MODEL "
-            f"{settings.MODEL!r}")
-    common = dict(n_layers=cfg["n_layers"],
-                  base_ch_list=tuple(cfg["base_ch_list"]),
-                  end_ch_list=tuple(cfg["end_ch_list"]),
-                  out_ch=cfg.get("out_ch", 1),
-                  stacking=cfg.get("stacking", 0), dtype=dtype,
-                  fused_stack=bool(getattr(settings, "USE_FUSED_STACK",
-                                           True)))
-    if cls is DC3D:
-        return DC3D(**common)
-    if cfg.get("at_geo_f_dim", 0):
-        raise NotImplementedError(
-            f"at_geo_f_dim={cfg['at_geo_f_dim']}: the PCM's geo encoding is "
-            "not ported (ROADMAP Queue 1 item 6)")
-    at = {k: cfg[k] for k in _AT_KEYS if k in cfg}
+    for k in _UNUSED_KEYS:
+        cfg.pop(k, None)
     for k in ("at_spatial_size", "at_layers"):
-        if k in at:
-            at[k] = tuple(at[k])
-    return DC3DATGeneric(**common, **at)
+        if k in cfg:
+            cfg[k] = tuple(cfg[k])
+    return cls(**cfg, dtype=dtype,
+               fused_stack=bool(getattr(settings, "USE_FUSED_STACK", True)))
 
 
-def build_train_step(settings, device="cuda", weights_path=None):
+def build_train_step(settings, device="cuda", weights_path=None,
+                     backbone_only=False):
     """TrainStep for `settings` on `device`: the model from MODEL with
     COMPUTE_DTYPE activations, its parameters from INITIALIZER (a
     torch.Generator seeded with RANDOM_SEED) or, with `weights_path`, the
-    trained flagship's tree (DC3DATGeneric: the whole tree; DC3D: its
-    backbone); OPTIMIZER and LOSS_FUNC from the port's registry."""
+    trained flagship's tree (DC3DATGeneric: the whole tree, or with
+    `backbone_only` its backbone over INITIALIZER's tap heads and PCM;
+    DC3D: its backbone); OPTIMIZER and LOSS_FUNC from the port's
+    registry."""
     device = require_cuda(device)
     dtype = torch.bfloat16 \
         if getattr(settings, "COMPUTE_DTYPE", "float32") == "bfloat16" \
         else torch.float32
     model = build_model(settings, dtype)
-    if weights_path is not None and isinstance(model, DC3DATGeneric):
-        weights.load_into(model, *weights.load_bench_weights(weights_path))
-    elif weights_path is not None:
-        weights.load_backbone(model, weights_path)
-    else:
+    if weights_path is None or backbone_only:
         init_cls, init_cfg = _method(settings.INITIALIZER)
         gen = torch.Generator().manual_seed(
             int(getattr(settings, "RANDOM_SEED", 33)))
         init_cls(**init_cfg)(model, gen)
+    if weights_path is not None and isinstance(model, DC3DATGeneric):
+        if backbone_only:
+            weights.load_backbone(model.backbone, weights_path)
+        else:
+            weights.load_into(model,
+                              *weights.load_bench_weights(weights_path))
+    elif weights_path is not None:
+        weights.load_backbone(model, weights_path)
     model.to(device)
-    opt_fn, opt_cfg = _method(settings.OPTIMIZER)
     loss_cls, loss_cfg = _method(settings.LOSS_FUNC)
     return TrainStep(model, loss_cls(**loss_cfg),
-                     opt_fn(model.parameters(), **opt_cfg),
-                     settings.LOSS_FACTORS)
+                     build_optimizer(model, settings.OPTIMIZER),
+                     settings.LOSS_FACTORS,
+                     int(getattr(settings, "RANDOM_SEED", 33)))
 
 
 def batch_tensors(batch, device, wire="f32"):
@@ -353,20 +441,28 @@ def batch_tensors(batch, device, wire="f32"):
 
 
 def train_steps(settings, n_steps, batches, device="cuda", weights_path=None,
-                on_step=None):
+                on_step=None, backbone_only=False):
     """Build a TrainStep from `settings` (build_train_step) and take
     `n_steps` steps over `batches` (collated or packed, cycled). The
     image wire is u16 on the card and f32 on the CPU unless
     settings.TRAIN_WIRE says otherwise. `on_step(i, step, out)`, when
     given, is called after step i. Returns {"losses": per-step (n_losses,)
     lists, "loss": per-step totals, "ms": per-step stage times,
-    "peak_mib": per-step peak device memory, "step": the TrainStep}."""
-    step = build_train_step(settings, device, weights_path)
+    "peak_mib": per-step peak device memory, "step": the TrainStep}.
+    `backbone_only` as in build_train_step. A loss with an epoch-static
+    transform (the equivariance losses) is reseeded before each step as
+    the epoch loop reseeds it in epoch 0."""
+    step = build_train_step(settings, device, weights_path, backbone_only)
     dev = next(step.model.parameters()).device
     wire = str(getattr(settings, "TRAIN_WIRE",
                        "u16" if dev.type == "cuda" else "f32"))
     out = {"losses": [], "loss": [], "ms": [], "peak_mib": [], "step": step}
+    seed = int(getattr(settings, "RANDOM_SEED", 33))
     for i in range(n_steps):
+        if hasattr(step.loss_func, "epoch_reseed"):
+            # the rescale's size for step i of epoch 0, as the epoch loop
+            # draws it (chunk_train.py)
+            step.loss_func.epoch_reseed(seed + 104729 * i)
         r = step(**batch_tensors(batches[i % len(batches)], dev, wire))
         out["losses"].append(r["losses"].tolist())
         out["loss"].append(float(r["loss"]))

@@ -15,9 +15,11 @@ Python scalars and arrays under 1 GiB.
 
 `from_jax` is the inverse of dram_tpu/train/torch_import.py:13-33, with the
 key mapping of tests/test_reference_parity.py:186-232: conv kernels
-(kd, kh, kw, Ci, Co) become (Co, Ci, kd, kh, kw), dense kernels (in, out)
-become (out, in), BN scale/bias/mean/var become weight/bias/running_mean/
-running_var; module names are kept, joined with dots. `to_jax` maps the
+(kd, kh, kw, Ci, Co) of any size become (Co, Ci, kd, kh, kw), dense
+kernels (in, out) become (out, in), BN and GroupNorm scale/bias become
+weight/bias, BN mean/var running_mean/running_var (the 'bnt' and
+'bntna' norms' too), conv biases and PReLU's scalar negative_slope keep
+their names; module names are kept, joined with dots. `to_jax` maps the
 port's state (or its gradients, by parameter name) back into flax-named
 trees, so that tests compare by name. `load_backbone` loads the trained
 flagship's DC3D backbone (st_dram_ref's widths and names) into a DC3D.
@@ -236,8 +238,8 @@ def from_jax(params, batch_stats):
             name = "weight"
         elif leaf == "scale":
             name = "weight"
-        elif leaf == "bias":
-            name = "bias"
+        elif leaf in ("bias", "negative_slope"):
+            name = leaf
         else:
             raise KeyError(f"unexpected flax param {'/'.join(path)}")
         sd[f"{mod}.{name}"] = torch.from_numpy(np.array(a))
@@ -258,31 +260,40 @@ def load_into(model, params, batch_stats):
 _STAT_LEAVES = {v: k for k, v in _STAT_NAMES.items()}
 
 
+def flax_path(name, ndim):
+    """The flax tree path of the port's tensor `name` of `ndim`
+    dimensions: its module names, then the flax leaf (conv and dense
+    weights "kernel", norm weights "scale", running statistics "mean" /
+    "var", biases and PReLU's "negative_slope" as they are)."""
+    *mods, leaf = name.split(".")
+    if leaf in _STAT_LEAVES:
+        leaf = _STAT_LEAVES[leaf]
+    elif leaf == "weight":
+        leaf = "kernel" if ndim in (2, 5) else "scale"
+    elif leaf not in ("bias", "negative_slope"):
+        raise KeyError(f"unexpected tensor {name}")
+    return tuple(mods) + (leaf,)
+
+
 def to_jax(state):
     """The port's tensors by name (a state_dict, or {name: grad} of the
     parameters) -> flax (params, batch_stats) nested dicts of f32 numpy
     arrays; the inverse of from_jax."""
     params, batch_stats = {}, {}
     for name, t in state.items():
-        *mods, leaf = name.split(".")
         a = t.detach().float().cpu().numpy()
-        if leaf in _STAT_LEAVES:
-            tree, leaf = batch_stats, _STAT_LEAVES[leaf]
-        elif leaf == "weight":
-            tree = params
-            if a.ndim == 5:  # conv (Co, Ci, kd, kh, kw) -> (kd, kh, kw, Ci, Co)
-                a, leaf = a.transpose(2, 3, 4, 1, 0), "kernel"
-            elif a.ndim == 2:  # dense (out, in) -> (in, out)
-                a, leaf = a.T, "kernel"
-            else:  # BatchNorm
-                leaf = "scale"
-        elif leaf == "bias":
-            tree = params
-        else:
-            raise KeyError(f"unexpected tensor {name}")
+        *mods, leaf = flax_path(name, a.ndim)
+        tree = batch_stats if name.split(".")[-1] in _STAT_LEAVES \
+            else params
+        if leaf == "kernel" and a.ndim == 5:
+            a = a.transpose(2, 3, 4, 1, 0)  # (Co, Ci, k, k, k) -> flax
+        elif leaf == "kernel":
+            a = a.T  # dense (out, in) -> (in, out)
         for m in mods:
             tree = tree.setdefault(m, {})
-        tree[leaf] = np.ascontiguousarray(a)
+        # a copy: a CPU tensor's .numpy() shares its memory, and the
+        # tree must not move when the parameter does
+        tree[leaf] = np.array(a, order="C")
     return params, batch_stats
 
 

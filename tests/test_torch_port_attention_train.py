@@ -233,8 +233,8 @@ class TestSettings:
 
     def test_build_model(self):
         """build_model makes the flagship DC3DATGeneric at its published
-        widths (the flax tree of the trained weights), and raises on the
-        options the port does not have."""
+        widths (the flax tree of the trained weights), builds the item-4
+        options and raises on a merge type dram_tpu does not have."""
         m = trainer.build_model(cfg, torch.bfloat16)
         assert isinstance(m, DC3DATGeneric)
         assert get_callable_by_name(cfg.MODEL["method"]) is DC3DATGeneric
@@ -244,9 +244,18 @@ class TestSettings:
             {k for k, _ in _flat(weights.to_jax(m.state_dict())[1])}
         assert got == want
         assert m.attention_module.offsets == wa.KERNEL_OFFSETS
-        for change in ({"at_merge_type": "l2"}, {"at_geo_f_dim": 4},
+        # the options of ROADMAP Queue 1 item 4 build; an unknown merge
+        # type raises
+        for change in ({"at_merge_type": "l2"},
+                       {"at_p_enc_dim": 12, "at_geo_f_dim": 4,
+                        "at_merge_type": "scaled_dot_product_geo_relu"},
                        {"dropout": 0.1}):
             class S:
                 MODEL = dict(cfg.MODEL, **change)
-            with pytest.raises(NotImplementedError):
-                trainer.build_model(S, torch.float32)
+            assert isinstance(trainer.build_model(S, torch.float32),
+                              DC3DATGeneric)
+
+        class Bad:
+            MODEL = dict(cfg.MODEL, at_merge_type="no_such_merge")
+        with pytest.raises(NotImplementedError):
+            trainer.build_model(Bad, torch.float32)

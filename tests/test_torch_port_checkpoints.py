@@ -121,7 +121,7 @@ def test_optax_state_reloads_into_port_adam(tmp_path):
     bs = weights.to_jax(model.state_dict())[1]
     weights.load_into(model, saved["model"]["params"], bs)
     opt = trainer.adam(model.parameters(), lr=1e-3)
-    checkpoint.load_adam_state(opt, model, saved["optimizer"])
+    checkpoint.load_optimizer_state(opt, model, saved["optimizer"])
     g_sd = weights.from_jax(grads[2], {})
     for n, prm in model.named_parameters():
         prm.grad = g_sd[n].clone()
@@ -131,7 +131,7 @@ def test_optax_state_reloads_into_port_adam(tmp_path):
                     jax.tree_util.tree_leaves(want)):
         np.testing.assert_allclose(a, np.asarray(b), rtol=0, atol=1e-6)
     # and back: the port's tree of that state has optax's layout
-    tree = checkpoint.adam_state_tree(opt, model)
+    tree = checkpoint.optimizer_state_tree(opt, model)
     serialization.from_state_dict(st, tree)
     assert int(tree["count"]) == 3
 

@@ -30,6 +30,7 @@ from dram_tpu_torch import weights
 from dram_tpu_torch.data.prepare_data import (make_synthetic_copd_dataset,
                                               make_synthetic_dataset)
 from dram_tpu_torch.train.__main__ import main
+from dram_tpu_torch.train.checkpoint import load_checkpoint
 from dram_tpu_torch.train.chunk_train import LesionSegChunkTrain
 from dram_tpu_torch.utils import Settings
 
@@ -302,9 +303,49 @@ def test_copd_subtyping_runs(tmp_path):
                                    "train_trace"))
 
 
+def test_variant_trains_and_resumes(db, tmp_path):
+    """A settings file with options of ROADMAP Queue 1 item 4 trains
+    through the CLI on the CPU and resumes: a narrow DC3DATGeneric with
+    'in' norms, PReLU, dropout and a k = 5 self-loop PCM of widths 16 /
+    4, HeNorm fan_out, Adam with weight decay and an attention_module
+    group, IntRegAffRefineLoss with a rescale pool (three loss terms),
+    TRACE on (the transform overlay is dumped); the checkpoint holds
+    dram_tpu's multi_transform layout and loads back."""
+    out = str(tmp_path / "out")
+    model = {"method": "models.DC3DATGeneric", "n_layers": 2,
+             "base_ch_list": [4, 8, 16, 16, 8],
+             "end_ch_list": [8, 16, 32, 16, 8], "stacking": 2,
+             "norm_method": "in", "act_method": "prelu", "dropout": 0.1,
+             "at_spatial_size": (8, 8, 8), "at_layers": (-1, 0),
+             "at_k_size": 5, "at_self_loop": True, "at_f_dim": 16,
+             "at_g_dim": 4}
+    smp = _settings_file(
+        tmp_path / "variant.py", db, out, epochs=1, MODEL=model,
+        INITIALIZER={"method": "models.HeNorm", "mode": "fan_out"},
+        OPTIMIZER={"method": "torch.optim.Adam", "lr": 1e-3,
+                   "weight_decay": 1e-4,
+                   "groups": {"attention_module": {"lr": 1e-2}}},
+        LOSS_FUNC={"method": "metrics.IntRegAffRefineLoss",
+                   "band_width": 1e-2, "smoothing": 0.1,
+                   "rescale_jitter": [12, 16, 20]},
+        LOSS_FACTORS=[2.0, 1.0, 0.5], TRACE=True)
+    runner = _cli(smp)
+    assert runner.epoch_stats["steps"] >= 1
+    assert all(np.isfinite(runner.epoch_stats["losses"]))
+    exp = os.path.join(out, "models", "tiny")
+    saved = load_checkpoint(os.path.join(exp, "0.ckpt"))["optimizer"]
+    assert sorted(saved["inner_states"]) == ["__default__",
+                                             "attention_module"]
+    traces = os.path.join(out, "debug", "tiny", "train_trace")
+    assert any(os.path.exists(os.path.join(traces, d, "transform.txt"))
+               for d in os.listdir(traces))
+    again = _cli(smp, pretrain=1)
+    assert [g["label"] for g in again.optimizer.param_groups] == \
+        ["__default__", "attention_module"]
+
+
 @pytest.mark.parametrize("extra", [
-    {"OPTIMIZER": {"method": "torch.optim.Adam", "lr": 1e-3,
-                   "groups": {"attention": {"lr": 1e-4}}}},
+    {"SCHEDULER": {"method": "torch.optim.Adam"}},
     {"DCN_MESH_SIZE": 2}, {"DP_BATCH_MODE": "scale"},
     {"PER_PROCESS_LOADING": True}, {"TRAIN_WIRE": "bf16"}])
 def test_unported_options_raise(db, tmp_path, extra):

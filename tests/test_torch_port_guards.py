@@ -56,7 +56,23 @@ assert {"dram_tpu_torch.train.trainer", "dram_tpu_torch.losses.refine",
         "dram_tpu_torch.data.pipeline", "dram_tpu_torch.data.prepare_data",
         "dram_tpu_torch.train.__main__", "dram_tpu_torch.train.chunk_train",
         "dram_tpu_torch.train.torch_import",
-        "dram_tpu_torch.configs.st_copd_subtyping"} <= set(names)
+        "dram_tpu_torch.configs.st_copd_subtyping",
+        "dram_tpu_torch.losses.equivariance", "dram_tpu_torch.models.pcm",
+        "dram_tpu_torch.kernels.window_attention"} <= set(names)
+# the generic attention path and the equivariance losses run without
+# scipy (blocked above): the stencil, a k = 5 PCM and the transforms
+import torch
+from dram_tpu_torch.kernels import window_attention as wa
+from dram_tpu_torch.models.pcm import PCM
+from dram_tpu_torch.losses import equivariance as eq
+assert len(wa.stencil_offsets(5, 2, True)) == 98
+m = PCM(in_ch=3, f_dim=4, g_dim=2, k_size=5, self_loop=True)
+assert m(torch.zeros(1, 4, 4, 4, 1), torch.zeros(1, 4, 4, 4, 3)).shape == \
+    (1, 4, 4, 4, 1)
+T = eq.OneShotTransform(torch.Generator().manual_seed(0), (6, 4, 4))
+assert T(torch.zeros(1, 4, 4, 4, 1)).shape == (1, 6, 4, 4, 1)
+assert eq.rotate3d_x_oneshot(torch.ones(1, 3, 3, 3, 1), 0.3).shape == \
+    (1, 3, 3, 3, 1)
 print(len(names))
 """)
     assert r.returncode == 0, r.stderr
@@ -88,7 +104,7 @@ def test_cuda_sources_include_plain_cuda_headers_only():
     assert sorted(srcs) == ["conv3x3x3.cu", "conv3x3x3_dw.cu",
                             "conv_wgmma.cuh",
                             "maxpool2.cu", "stencil_attention.cu",
-                            "upsample2x.cu"]
+                            "stencil_attention_generic.cu", "upsample2x.cu"]
     for f in srcs:
         with open(os.path.join(CSRC, f)) as fp:
             includes = re.findall(r"#\s*include\s*[<\"]([^>\"]+)", fp.read())
@@ -161,3 +177,34 @@ def test_chip_smoke_fails_alone(tmp_path):
                             if k != "PYTHONPATH"})
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_registry_resolves_every_dram_tpu_name():
+    """Each of the 15 method names of dram_tpu/utils.py:_ALIASES resolves
+    in the port's registry to a dram_tpu_torch object, the six names
+    that the training options need among them."""
+    from dram_tpu_torch.configs import get_callable_by_name
+    with open(os.path.join(REPO, "dram_tpu", "utils.py")) as fp:
+        text = fp.read()
+    table = text[text.index("_ALIASES = {"):]
+    table = table[:table.index("}")]
+    names = re.findall(r'^\s*"([\w.]+)":', table, re.M)
+    assert len(names) == 15
+    for name in names:
+        fn = get_callable_by_name(name)
+        assert fn.__module__.startswith("dram_tpu_torch."), name
+    for name in ("models.PCM", "metrics.IntRegAffLoss",
+                 "metrics.IntRegAffRefineLoss", "metrics.BootBinCrossEntropy",
+                 "metrics.BinaryCrossEntropySmooth", "torch.optim.SGD"):
+        assert name in names
+
+
+def test_no_stale_queue_item_names():
+    """The port's messages name ROADMAP Queue 1 items that exist (it has
+    five): no source of dram_tpu_torch names an "item 6" or later."""
+    root = os.path.join(REPO, "dram_tpu_torch")
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(dirpath, f)) as fp:
+                    assert not re.search(r"item\s+([6-9]|\d\d)", fp.read()), f

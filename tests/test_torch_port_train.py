@@ -24,6 +24,7 @@ from dram_tpu_torch.configs import st_dram_ref as cfg
 from dram_tpu_torch.data.synth import train_batch
 from dram_tpu_torch.losses.refine import IntRegRefineLoss
 from dram_tpu_torch.models import DC3D
+from dram_tpu_torch.models.blocks import Dropout
 from dram_tpu_torch.models.initializers import HeNorm
 from dram_tpu_torch.train import trainer
 
@@ -169,9 +170,10 @@ class TestSlice:
         assert next(out["step"].model.parameters()).dtype == torch.float32
         assert all(np.isfinite(out["loss"]))
         assert set(out["ms"][0]) == {"forward", "backward", "optimizer"}
-        with pytest.raises(NotImplementedError):
-            s.MODEL = dict(s.MODEL, dropout=0.5)
-            trainer.build_train_step(s, "cpu")
+        # dropout is ported: the step builds, its model has the Dropouts
+        s.MODEL = dict(s.MODEL, dropout=0.5)
+        step = trainer.build_train_step(s, "cpu")
+        assert any(isinstance(m, Dropout) for m in step.model.modules())
 
 
 class TestInit:
@@ -267,14 +269,18 @@ class TestWireAndOptimizer:
         assert j.lr == pytest.approx(s.lr)
 
     def test_unported_options_raise(self):
-        """Weight decay (optax's adamw) and HeNorm's fan_out mode are set
-        by no configuration and are not ported: they raise, they do not
-        run something else."""
+        """Weight decay (optax's adamw) and HeNorm's fan_out mode are
+        ported: adam with weight_decay is torch's AdamW, HeNorm takes any
+        mode; an unknown MODEL key raises TypeError, as flax does."""
         p = torch.nn.Parameter(torch.zeros(2))
-        with pytest.raises(NotImplementedError):
-            trainer.adam([p], weight_decay=1e-4)
-        with pytest.raises(NotImplementedError):
-            HeNorm("fan_out")
+        assert isinstance(trainer.adam([p], weight_decay=1e-4),
+                          torch.optim.AdamW)
+        assert HeNorm("fan_out").mode == "fan_out"
+
+        class S:
+            MODEL = dict(cfg.MODEL, no_such_option=1)
+        with pytest.raises(TypeError):
+            trainer.build_model(S, torch.float32)
 
 
 class TestSettings:

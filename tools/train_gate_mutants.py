@@ -3,7 +3,7 @@
 deliberately broken copies of them, on one NVIDIA GPU.
 
     python3 tools/train_gate_mutants.py [--config st_dram_ref_att]
-                                        [--unfused | --golden]
+                                        [--unfused | --golden | --generic]
 
 For each variant the script copies dram_tpu_torch/ and chip_smoke.py
 into a temporary directory, breaks one line of a CUDA source there (the
@@ -60,6 +60,34 @@ golden` phase). Variants:
 - fwd_halo, scal_late: as above, the two attention staging faults.
 
 With --golden the kernel checks also run chip_smoke's attention sweep.
+
+With --generic (the generic stencil-attention kernels,
+csrc/stencil_attention_generic.cu) each variant reads chip_smoke's
+generic attention checks (every stencil and width of GENERIC_CASES
+against the plain versions) and variant A's train gate (the flagship
+with a k = 5, connectivity-2, self-loop PCM of widths 16 / 4 on the
+generic kernels, from the trained backbone):
+
+- sound: the tree as it is;
+- dphi_plus: the gradient pass gathers dphi and dg over i = j + o
+  instead of j - o (right on a symmetric stencil, wrong on k = 5's);
+- fwd_drop_last: the forward skips the stencil's last offset.
+
+With --variant-b (variant B: 'in' norms, PReLU, dropout, AdamW with a
+group, IntRegAffRefineLoss; its stacks on the unfused conv kernels) each
+variant reads variant B's train gate (chip_smoke's `train variant b`
+phases):
+
+- sound: the tree as it is. Its run also reads the gate with two
+  gradients of the kernel run replaced before the comparison (no
+  kernel changes, so the same runs serve): slope_drop, ds_0's PReLU
+  slope gradient lost (0); slope_70, that gradient at 70% of its value.
+  Then a second witness of the slopes' rounding, at batch 4 (a float32
+  step at batch 10 does not fit in 80 GB): the kernel step and the
+  plain step, both in bf16, each against the plain step with float32
+  activations, slope by slope;
+- dw64: as above, the weight-gradient kernel skips every 64th K box.
+
 `--variants a,b` reads only the named variants.
 """
 
@@ -121,6 +149,17 @@ GOLDEN_VARIANTS = {
     "fwd_halo": ATT_VARIANTS["fwd_halo"],
     "scal_late": ATT_VARIANTS["scal_late"],
 }
+SAG = "stencil_attention_generic.cu"
+SIGN_LINE = "        const int sz = -o.x, sy = -o.y, sx = -o.z;  // i = j - o"
+K_LINE = "  const int K = st.k;  // the forward's offsets"
+GENERIC_VARIANTS = {
+    "sound": None,
+    "dphi_plus": (SAG, SIGN_LINE, "        const int sz = o.x, sy = o.y, "
+                  "sx = o.z;  // i = j - o"),
+    "fwd_drop_last": (SAG, K_LINE,
+                      "  const int K = st.k - 1;  // the forward's offsets"),
+}
+VARIANT_B_VARIANTS = {"sound": None, "dw64": DW64}
 LIMIT_S = 300
 
 
@@ -238,6 +277,133 @@ def read_golden():
         bench, {}, (("train_golden", settings),)))
 
 
+def read_generic():
+    """Run in a copy's directory: chip_smoke's generic attention checks
+    and variant A's train gate of that copy, each printed with "pass" or
+    its failure."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    import chip_smoke as cs
+    from dram_tpu_torch.data.synth import train_batch
+    from dram_tpu_torch.kernels import _build
+
+    if not cs.__file__.startswith(os.getcwd()):
+        raise SystemExit(f"imported {cs.__file__}, not the copy's")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.load()
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+
+    def gate(name, fn):
+        try:
+            fn()
+            print(f"# {name}: pass", flush=True)
+        except SystemExit as e:
+            print(f"# {name}: {e}", flush=True)
+    gate("kernel check generic attention",
+         lambda: cs.generic_attention_phase(gen))
+    torch.cuda.empty_cache()
+    bench = os.path.join(ROOT, "assets", "bench_weights.ckpt.xz")
+    va = cs.variant_a()
+    batch = train_batch(cs.SEED, batch=va.TRAIN_BATCH_SIZE,
+                        size=va.RESAMPLE_SIZE[0],
+                        window=(va.WINDOWING_MIN, va.WINDOWING_MAX))
+
+    def train_gate():
+        k_run = cs.run_train(va, "generic kernels", batch, bench, True)
+        torch.cuda.empty_cache()
+        with cs.plain_versions():
+            p_run = cs.run_train(va, "generic plain versions", batch, bench,
+                                 True)
+        cs.compare_train(k_run, p_run, cs.variant_buffers(va, bench)(),
+                         "train generic")
+    gate("train gate variant A", train_gate)
+
+
+def read_variant_b(sound):
+    """Run in a copy's directory: variant B's train gate of that copy,
+    printed with "pass" or its failure; with `sound` also the gate's
+    readings with ds_0's slope gradient lost or at 70% in the kernel run,
+    and the float32 witness at batch 4."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    import chip_smoke as cs
+    from dram_tpu_torch.configs import with_settings
+    from dram_tpu_torch.data.synth import train_batch
+    from dram_tpu_torch.kernels import _build
+
+    if not cs.__file__.startswith(os.getcwd()):
+        raise SystemExit(f"imported {cs.__file__}, not the copy's")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.load()
+    vb = cs.variant_b()
+
+    def batch_of(settings):
+        return train_batch(cs.SEED, batch=settings.TRAIN_BATCH_SIZE,
+                           size=settings.RESAMPLE_SIZE[0],
+                           window=(settings.WINDOWING_MIN,
+                                   settings.WINDOWING_MAX))
+
+    def gate(name, k_run, p_run):
+        try:
+            cs.compare_train(k_run, p_run, cs.variant_buffers(vb, None)(),
+                             "train variant b")
+            print(f"# {name}: pass", flush=True)
+        except SystemExit as e:
+            print(f"# {name}: {e}", flush=True)
+
+    batch = batch_of(vb)
+    k_run = cs.run_train(vb, "variant b kernels", batch, None)
+    torch.cuda.empty_cache()
+    with cs.plain_versions():
+        p_run = cs.run_train(vb, "variant b plain versions", batch, None)
+    torch.cuda.empty_cache()
+    gate("train gate variant B", k_run, p_run)
+    if not sound:
+        return
+    slope = "backbone.ds_0.convs.PReLU_0.negative_slope"
+    for name, scale in (("slope_drop", 0.0), ("slope_70", 0.7)):
+        print(f"# variant {name}: the kernel run's {slope} gradient times "
+              f"{scale}", flush=True)
+        grads = dict(k_run["grads"], **{slope: k_run["grads"][slope] * scale})
+        gate(f"train gate variant B, {name}", dict(k_run, grads=grads),
+             p_run)
+    del k_run, p_run
+    torch.cuda.empty_cache()
+
+    w4 = with_settings(vb, TRAIN_BATCH_SIZE=4)
+    batch = batch_of(w4)
+    runs = {"kernels bf16": cs.run_train(w4, "witness kernels", batch, None)}
+    torch.cuda.empty_cache()
+    with cs.plain_versions():
+        runs["plain bf16"] = cs.run_train(w4, "witness plain versions",
+                                          batch, None)
+        torch.cuda.empty_cache()
+        f32 = cs.run_train(with_settings(w4, COMPUTE_DTYPE="float32"),
+                           "witness plain versions f32", batch, None)
+    torch.cuda.empty_cache()
+    for n, want in f32["grads"].items():
+        if not n.endswith("negative_slope"):
+            continue
+        errs = ", ".join(
+            f"{tag} {r['grads'][n].item():.6g} (relative error "
+            f"{abs(r['grads'][n].item() - want.item()) / abs(want.item()):.3g})"
+            for tag, r in runs.items())
+        print(f"# witness batch 4, {n}: float32 {want.item():.6g}; {errs}",
+              flush=True)
+    for tag, r in runs.items():
+        rl2 = {n: ((r["grads"][n] - g).norm() / g.norm().clamp(min=1e-30))
+               .item() for n, g in f32["grads"].items()
+               if not cs.zero_in_exact_arithmetic(n)
+               and not n.endswith("negative_slope")}
+        worst = max(rl2, key=rl2.get)
+        print(f"# witness batch 4, {tag} vs float32: worst relative L2 of "
+              f"the other gradients {rl2[worst]:.3g} ({worst})", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", default="st_dram_ref",
@@ -247,12 +413,20 @@ def main():
     ap.add_argument("--golden", action="store_true",
                     help="the kernel checks, the flagship's train gate and "
                     "the train golden gate of the upsample and dW variants")
+    ap.add_argument("--generic", action="store_true",
+                    help="the generic attention kernels' checks and variant "
+                    "A's train gate of their variants")
+    ap.add_argument("--variant-b", action="store_true",
+                    help="variant B's train gate of the sound and dw64 "
+                    "variants, the slope readings and the float32 witness")
     ap.add_argument("--variants", help="comma-separated names to read "
                     "(default: all of the mode's)")
     args = ap.parse_args()
     if args.unfused and args.config != "st_dram_ref_att":
         raise SystemExit("--unfused goes with --config st_dram_ref_att")
-    variants = GOLDEN_VARIANTS if args.golden else UNFUSED_VARIANTS \
+    variants = VARIANT_B_VARIANTS if args.variant_b \
+        else GENERIC_VARIANTS if args.generic else GOLDEN_VARIANTS \
+        if args.golden else UNFUSED_VARIANTS \
         if args.unfused else ATT_VARIANTS \
         if args.config == "st_dram_ref_att" else VARIANTS
     if args.variants:
@@ -269,9 +443,11 @@ def main():
             print(f"# variant {name}: "
                   f"{'as in the tree' if change is None else change[2]}",
                   flush=True)
-            rc = run_in_copy(d, __file__, ["--read-golden"] if args.golden
-                             else ["--read", args.config,
-                                   str(int(args.unfused))], LIMIT_S)
+            read = ["--read-variant-b", str(int(change is None))] \
+                if args.variant_b else ["--read-generic"] if args.generic \
+                else ["--read-golden"] if args.golden \
+                else ["--read", args.config, str(int(args.unfused))]
+            rc = run_in_copy(d, __file__, read, LIMIT_S)
             if rc != 0:
                 print(f"# variant {name} exited {rc}", flush=True)
                 failed.append(name)
@@ -280,7 +456,11 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--read-golden"]:
+    if sys.argv[1:2] == ["--read-variant-b"]:
+        read_variant_b(sys.argv[2] == "1")
+    elif sys.argv[1:2] == ["--read-generic"]:
+        read_generic()
+    elif sys.argv[1:2] == ["--read-golden"]:
         read_golden()
     elif sys.argv[1:2] == ["--read"]:
         read_gate(sys.argv[2], sys.argv[3] == "1")

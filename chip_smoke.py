@@ -179,6 +179,35 @@ traceback and a non-zero exit:
    a resume whose optimizer state equals 0.ckpt's bitwise, training
    epochs 0 and 1 (the checkpoint's epoch restarts) and writing 1.ckpt;
    per epoch the times and peak MiB.
+23. engine shard (after 11's host-stitch phase): LesionSegTest with
+   SHARD_SCANS = 2 over the engine split, two scans in flight on two
+   threads, on cuda:0 twice (two cards where two are visible): masks,
+   post masks, heatmaps and records equal to the serial engine phase's
+   bit for bit; the chunk wire's forward kernels launched (path
+   engine_shard).
+24. train dp / train dp pad (after 22): DP_WORLD = 2 ranks, processes
+   spawned from this script, join a gloo group through torchrun's
+   environment (core/mesh.py: NCCL refuses two ranks on one card) and
+   run the flagship's 3 steps from its trained tree on their 5 rows of
+   the global batch (train att's 10 x 80^3; then 9 rows padded to 10 by
+   mesh.pad_batch with one wrap-around row of weight 0), every kernel of
+   the train_att path launched in each rank (counts zeroed before, read
+   after; path train_dp). Each is held against the one-process step on
+   the same padded batch and weights, dram_tpu's rank-local tap-head
+   statistics emulated (rank_local_norms): the ranks' parameters bitwise
+   equal; every step's loss terms; step 1's gradients after the
+   cross-rank mean and BatchNorm statistics at the train gate's limits;
+   each step's parameters at DP_UPDATE_REL_L2 of the update (placed by
+   tools/train_gate_mutants.py --dp). Per rank: step ms and peak MiB.
+   Two ranks share one card: no number here is a multi-GPU speed-up.
+25. pcm sharded / overlap tile (after 24, one spawn of the ranks):
+   pcm_sharded of the flagship's PCM (batch 5, 64^3, F = G = 8) over the
+   ranks (the plain path on each rank's block and halo) against the
+   unsharded PCM on the plane-ring kernel (1e-4 of the largest);
+   overlap_tile_infer of the flagship backbone with a local upsample
+   (bf16, trained weights) on 2 x 160 x 80 x 80 in 4 tiles of halo 48,
+   each rank its share of the windows, against the unsharded forward
+   (2^-7 of the largest; path overlap_tile).
 
 Prints a `{"kernels": [...]}` JSON line and, last, the device line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before it.
@@ -205,6 +234,7 @@ import torch.nn.functional as F
 from dram_tpu_torch import golden, native, weights
 from dram_tpu_torch.configs import (get_callable_by_name, st_dram_ref,
                                     st_dram_ref_att, with_settings)
+from dram_tpu_torch.core import mesh
 from dram_tpu_torch.core.ops import binary_cam_np
 from dram_tpu_torch.data.datasets import RadboudCOVIDLobeVesselChunk
 from dram_tpu_torch.data.hostprep import prep_scan
@@ -225,7 +255,7 @@ from dram_tpu_torch.train.checkpoint import (load_checkpoint,
                                              optimizer_state_tree,
                                              save_checkpoint)
 from dram_tpu_torch.train.chunk_train import LesionSegChunkTrain
-from dram_tpu_torch.train.trainer import build_model
+from dram_tpu_torch.train.trainer import build_model, pack_train_batch
 from dram_tpu_torch.utils import Settings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -242,7 +272,9 @@ LIMITS = {"card": 30, "build": 180, "kernel": 60, "weights": 60,
           "pipeline_generic": 180, "train_generic": 300,
           "train_generic_plain": 300, "train_geo": 240,
           "train_geo_plain": 240, "train_variant_b": 300,
-          "train_variant_b_plain": 300, "variant_b_epochs": 420}
+          "train_variant_b_plain": 300, "variant_b_epochs": 420,
+          "engine_shard": 300, "train_dp": 420, "train_dp_pad": 120,
+          "pcm_sharded": 240, "overlap_tile": 60}
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor-core
 # and f32 CUDA-core flop/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -1332,6 +1364,14 @@ PATHS["train_geo"] = TRAIN_KERNELS
 PATHS["train_variant_b"] = UNFUSED_TRAIN + ATTENTION_TRAIN
 PATHS["variant_b_epochs"] = PATHS["train_variant_b"]
 PATHS["variant_b_resume"] = PATHS["train_variant_b"]
+# multi-device: each rank of train dp / train dp pad runs the flagship's
+# step; the scan-sharded engine the chunk wire's forward; overlap tiles
+# the backbone's forward (a local upsample: no upsample kernel); the
+# sharded PCM its plain path (z0 != 0, as dram_tpu dispatches)
+PATHS["train_dp"] = PATHS["train_att"]
+PATHS["engine_shard"] = PATHS["engine"]
+PATHS["overlap_tile"] = ("conv3x3x3", "maxpool2")
+PATHS["pcm_sharded"] = ()
 FORWARD_LAUNCHES = {"conv3x3x3": 14, "maxpool2": 3, "upsample2x": 3,
                     "stencil_attention": 1}
 
@@ -2841,6 +2881,423 @@ def unfused_vs_fused(f, u):
           flush=True)
 
 
+# --- data parallelism on torch.distributed -----------------------------------
+
+DP_WORLD = 2
+BENCH = os.path.join(ROOT, "assets", "bench_weights.ckpt.xz")
+# the train dp gate: each step's parameters against the one-process run's,
+# the worst relative L2 of the difference over the update (p_ref - p_0)
+# of a tensor, placed between the sound readings (0.0731 / 0.125, train
+# dp / train dp pad) and those of broken data-parallel code (one stack's
+# statistics local 0.918-1.06, the padded row at weight 1 0.40-0.50;
+# gradients summed, not averaged, read 0.0732: Adam hides the factor 2,
+# the gradient gate catches it; PERF.md, tools/train_gate_mutants.py --dp)
+DP_UPDATE_REL_L2 = 0.3
+# overlap tiles of the flagship backbone (DC3D, local upsample): four
+# tiles of 40 planes in windows of 136 (halo 48, enough for its
+# receptive field) over 2 x 160 x 80 x 80
+OVERLAP_SHAPE, OVERLAP_TILES, OVERLAP_HALO = (2, 160, 80, 80), 4, 48
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def rank_local_norms(world):
+    """The one-process reference of a data-parallel step: a BatchNorm that
+    dram_tpu keeps local to a rank (cross_rank False: DC3DATGeneric's tap
+    heads) normalises each rank's rows of the batch with their own
+    statistics, and its running statistics move with rank 0's."""
+    from dram_tpu_torch.models.blocks import BatchNorm
+    forward = BatchNorm.forward
+
+    def local(self, x):
+        if self.cross_rank or not self.training:
+            return forward(self, x)
+        r0 = (self.running_mean.clone(), self.running_var.clone())
+        outs = []
+        for i, part in enumerate(x.chunk(world)):
+            outs.append(forward(self, part))
+            if i == 0:
+                first = (self.running_mean.clone(), self.running_var.clone())
+            with torch.no_grad():
+                self.running_mean.copy_(r0[0])
+                self.running_var.copy_(r0[1])
+        with torch.no_grad():
+            self.running_mean.copy_(first[0])
+            self.running_var.copy_(first[1])
+        return torch.cat(outs)
+    BatchNorm.forward = local
+    try:
+        yield
+    finally:
+        BatchNorm.forward = forward
+
+
+def dp_batch(n_real, pad):
+    """The train att phase's batch (10 x 80^3, -1000..-700 HU) cut to its
+    first `n_real` rows, packed for the u16 wire, padded to 10 rows by
+    `pad` (arrays, n) -> (arrays, weights)."""
+    s = st_dram_ref_att
+    batch = train_batch(SEED, batch=s.TRAIN_BATCH_SIZE,
+                        size=s.RESAMPLE_SIZE[0],
+                        window=(s.WINDOWING_MIN, s.WINDOWING_MAX))
+    packed = pack_train_batch(batch, "u16")
+    keys = ("images", "span", "lobes", "lesions", "ctss")
+    arrays, w = pad(tuple(packed[k][:n_real] for k in keys), DP_WORLD)
+    return dict(packed, **dict(zip(keys, arrays)), weights=w,
+                ctss_frequency=batch["ctss_frequency"])
+
+
+def explicit_pad(arrays, world):
+    """The reference's padding, written out (not mesh.pad_batch): rows
+    wrap around to 10, the added rows at weight 0."""
+    n = arrays[0].shape[0]
+    idx = np.arange(st_dram_ref_att.TRAIN_BATCH_SIZE) % n
+    return (tuple(a[idx] for a in arrays),
+            (np.arange(len(idx)) < n).astype(np.float32))
+
+
+def dp_train_run(batch, device, group, keep_params):
+    """TRAIN_STEPS steps of the flagship from its trained tree on `batch`
+    (this rank's rows and weights under a group): per step the loss
+    terms, ms and peak MiB; step 1's gradients (after the cross-rank
+    mean) and buffers; with `keep_params` the parameters after each step;
+    a float64 fingerprint of the last ones."""
+    rec = {"params": []}
+
+    def on_step(i, step, r):
+        if i == 0:
+            rec["grads"] = {n: p.grad.detach().float().cpu().clone()
+                            for n, p in step.model.named_parameters()}
+            rec["buffers"] = {n: b.detach().cpu().clone()
+                              for n, b in step.model.named_buffers()}
+        if keep_params:
+            rec["params"].append({n: p.detach().float().cpu().clone()
+                                  for n, p in step.model.named_parameters()})
+    out = train_steps(st_dram_ref_att, TRAIN_STEPS, [batch], device=device,
+                      weights_path=BENCH, on_step=on_step, group=group)
+    rec.update(losses=out["losses"], loss=out["loss"], ms=out["ms"],
+               peak_mib=out["peak_mib"], fingerprint=torch.stack(
+                   [p.detach().double().sum() for p in
+                    out["step"].model.parameters()]).cpu())
+    return rec
+
+
+def dp_rank_train(rank, group, device):
+    """The ranks' side of train dp and train dp pad: each rank takes its
+    rows of the padded global batch (mesh.pad_batch) and runs the steps;
+    launch counts zeroed before each run and read after (path
+    train_dp)."""
+    res = {}
+    for n_real in (10, 9):
+        batch = dp_batch(n_real, mesh.pad_batch)
+        per = len(batch["weights"]) // DP_WORLD
+        local = {k: (v[rank * per:(rank + 1) * per]
+                     if isinstance(v, np.ndarray) and v.ndim
+                     and v.shape[0] == 2 * per else v)
+                 for k, v in batch.items()}
+        zero_counts()
+        rec = dp_train_run(local, device, group, rank == 0)
+        torch.cuda.synchronize()
+        rec["counts"] = path_counts("train_dp")
+        res[n_real] = rec
+        torch.cuda.empty_cache()
+    return res
+
+
+def pcm_inputs(pcm, device):
+    """cam (5, 64^3, 1) and f (5, 64^3, in_ch), f32, from SEED."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    size = (5,) + tuple(DC3DATGeneric().at_spatial_size)
+    cam = torch.randn(size + (1,), generator=gen, device=device)
+    f = torch.relu(torch.randn(size + (pcm.theta.in_features,),
+                               generator=gen, device=device))
+    return cam, f
+
+
+def overlap_input(device):
+    """(2, 160, 80, 80, 1): pairs of the train batch's chunks stacked in
+    depth."""
+    x = torch.from_numpy(train_batch(SEED, batch=4, size=80,
+                                     window=WINDOW)["#image"])
+    return x.reshape(OVERLAP_SHAPE + (1,)).to(device)
+
+
+def overlap_model(device):
+    model = DC3D(stacking=st_dram_ref.MODEL["stacking"], local_upsample=True,
+                 dtype=torch.bfloat16)
+    return weights.load_backbone(model, BENCH).to(device).eval()
+
+
+def dp_rank_context(rank, group, device):
+    """The ranks' side of pcm sharded (the flagship's PCM over the ranks:
+    the plain path, no kernel launch) and overlap tile (the flagship
+    backbone with a local upsample, path overlap_tile)."""
+    from dram_tpu_torch.models.pcm import pcm_sharded
+    pcm = weights.load_into(DC3DATGeneric(), *weights.load_bench_weights(
+        BENCH)).attention_module.to(device)
+    cam, f = pcm_inputs(pcm, device)
+    zero_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        out = pcm_sharded(pcm, cam, f, group)
+        torch.cuda.synchronize()
+        pcm_ms = (time.perf_counter() - t0) * 1e3
+    path_counts("pcm_sharded")
+    res = {"pcm": out.cpu(), "pcm_ms": pcm_ms}
+    del pcm, cam, f, out
+    model = overlap_model(device)
+    x = overlap_input(device)
+    zero_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        dense, refined = mesh.overlap_tile_infer(
+            lambda xb, lb: model(xb), x, x, OVERLAP_TILES, OVERLAP_HALO,
+            group)
+        torch.cuda.synchronize()
+        res["overlap_ms"] = (time.perf_counter() - t0) * 1e3
+    res["overlap_counts"] = path_counts("overlap_tile")
+    res["dense"] = dense.cpu()
+    return res
+
+
+DP_JOBS = {"train": dp_rank_train, "context": dp_rank_context}
+
+
+def dp_rank(rank, world, port, job, limit, out_dir, bench):
+    """One rank (a spawned process): joins the gloo group through the
+    environment torchrun sets, on the card it shares, runs `job` under
+    its own watchdog (the trained weights at `bench`) and saves the
+    result for the parent."""
+    global BENCH
+    BENCH = bench
+    faulthandler.dump_traceback_later(limit, exit=True)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh.maybe_init_distributed("cuda")
+    group = mesh.data_group()
+    device = mesh.local_device("cuda")
+    _build.load()
+    res = DP_JOBS[job](rank, group, device)
+    res.update(backend=torch.distributed.get_backend(group),
+               device=str(device), gpus=torch.cuda.device_count())
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def run_ranks(job, limit):
+    """Spawn DP_WORLD ranks of `job` and return their results; a rank that
+    fails or outlives `limit` fails the phase (the others are ended)."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    port = free_port()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as d:
+        procs = [ctx.Process(target=dp_rank,
+                             args=(r, DP_WORLD, port, job, limit, d, BENCH))
+                 for r in range(DP_WORLD)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + limit + 30
+        while any(p.is_alive() for p in procs) and \
+                time.monotonic() < deadline and \
+                not any(p.exitcode not in (None, 0) for p in procs):
+            time.sleep(0.5)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        bad = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode}
+        if bad:
+            fail(f"{job}: ranks failed (rank: exit code) {bad}")
+        out = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+               for r in range(DP_WORLD)]
+    used = {(o["backend"], o["device"], o["gpus"]) for o in out}
+    print(f"# {job}: {DP_WORLD} ranks over "
+          + ", ".join(f"{b} on {dev} ({g} GPU{'s' * (g != 1)} visible)"
+                      for b, dev, g in sorted(used))
+          + ("; the ranks share one card" if len(used) == 1 else ""),
+          flush=True)
+    return out
+
+
+def compare_dp(ranks, ref, initial, label):
+    """Data-parallel ranks vs the one-process run: the ranks' parameters
+    bitwise equal; each rank's launches, step ms and peak; every step's
+    loss terms; step 1's gradients and BatchNorm statistics by the train
+    gate (compare_train); each step's parameters by DP_UPDATE_REL_L2 (but
+    those whose gradient is zero in exact arithmetic: Adam steps them on
+    rounding alone). Every reading is printed before a failure."""
+    fp = ranks[0]["fingerprint"]
+    if not all(torch.equal(r["fingerprint"], fp) for r in ranks[1:]):
+        fail(f"{label}: the ranks' parameters differ after the steps")
+    for r, res in enumerate(ranks):
+        print(f"# {label} rank {r}: launches {res['counts']}; step ms "
+              + ", ".join(f"{sum(m.values()):.1f}" for m in res["ms"])
+              + f"; peak {max(res['peak_mib']):.0f} MiB", flush=True)
+    print(f"# {label} one process (reference): step ms "
+          + ", ".join(f"{sum(m.values()):.1f}" for m in ref["ms"])
+          + f"; peak {max(ref['peak_mib']):.0f} MiB", flush=True)
+    failed = []
+    for i in range(TRAIN_STEPS):
+        a, b = ranks[0]["losses"][i], ref["losses"][i]
+        rel = max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+        print(f"# {label} step {i + 1}: loss terms {a} vs {b} (rel "
+              f"{rel:.3g}, allowed {LOSS_RTOL})", flush=True)
+        if not rel <= LOSS_RTOL:
+            failed.append(f"step {i + 1}'s loss terms")
+    try:
+        compare_train(dict(ranks[0], losses=ranks[0]["losses"][0]),
+                      dict(ref, losses=ref["losses"][0]), initial["buffers"],
+                      label)
+    except SystemExit:
+        failed.append("step 1's gradients or statistics")
+    for i, (pd, pr) in enumerate(zip(ranks[0]["params"], ref["params"])):
+        rl2 = {n: ((pd[n] - pr[n]).norm() / (pr[n] - initial["params"][n])
+                   .norm().clamp(min=1e-30)).item() for n in pr
+               if not zero_in_exact_arithmetic(n)}
+        worst = max(rl2, key=rl2.get)
+        print(f"# {label} parameters after step {i + 1}: worst relative L2 "
+              f"of the difference over the update {rl2[worst]:.3g} ({worst},"
+              f" allowed {DP_UPDATE_REL_L2}), median "
+              f"{float(np.median(list(rl2.values()))):.3g}", flush=True)
+        if not rl2[worst] <= DP_UPDATE_REL_L2:
+            failed.append(f"the parameters after step {i + 1}")
+    if failed:
+        fail(f"{label} disagrees with the one-process step: "
+             + ", ".join(failed))
+
+
+def train_dp_phases(launches, compare=compare_dp):
+    """Phases train dp and train dp pad: DP_WORLD gloo ranks on the card
+    run the flagship's step on their rows of the global batch (10 rows;
+    then 9 padded to 10 with one wrap-around row of weight 0), each held
+    against the one-process step on the same padded batch and weights
+    from the same start, dram_tpu's local tap-head statistics emulated
+    (rank_local_norms), by `compare` (compare_dp)."""
+    start = weights.load_into(DC3DATGeneric(),
+                              *weights.load_bench_weights(BENCH))
+    initial = {"buffers": dict(start.named_buffers()),
+               "params": {n: p.detach().float().clone()
+                          for n, p in start.named_parameters()}}
+    del start
+    torch.cuda.empty_cache()
+    with phase("train dp", LIMITS["train_dp"]):
+        ranks = run_ranks("train", LIMITS["train_dp"] - 60)
+        with rank_local_norms(DP_WORLD):
+            ref = dp_train_run(dp_batch(10, explicit_pad), "cuda", None,
+                               True)
+        compare([r[10] for r in ranks], ref, initial, "train dp")
+        torch.cuda.empty_cache()
+    with phase("train dp pad", LIMITS["train_dp_pad"]):
+        with rank_local_norms(DP_WORLD):
+            ref = dp_train_run(dp_batch(9, explicit_pad), "cuda", None, True)
+        compare([r[9] for r in ranks], ref, initial, "train dp pad")
+        torch.cuda.empty_cache()
+    launches["train_dp"] = {k: sum(r[n]["counts"][k] for r in ranks
+                                   for n in (10, 9))
+                            for k in PATHS["train_dp"]}
+
+
+def context_parallel_phases(launches):
+    """Phases pcm sharded and overlap tile: the ranks' results of
+    dp_rank_context against the one-process forwards (the PCM on the
+    plane-ring kernel, within 1e-4 of the largest; the backbone's whole
+    volume, within 2^-7 of the largest)."""
+    with phase("pcm sharded", LIMITS["pcm_sharded"]):
+        ranks = run_ranks("context", LIMITS["pcm_sharded"] - 30)
+        pcm = weights.load_into(DC3DATGeneric(), *weights.load_bench_weights(
+            BENCH)).attention_module.cuda()
+        cam, f = pcm_inputs(pcm, "cuda")
+        with torch.no_grad():
+            want = pcm(cam, f).cpu()
+        for r, res in enumerate(ranks):
+            err = (res["pcm"] - want).abs().max().item() / \
+                want.abs().max().item()
+            print(f"# pcm sharded rank {r}: {tuple(want.shape)} over "
+                  f"{DP_WORLD} ranks (the plain path, halo 1) vs the "
+                  f"unsharded PCM on the plane-ring kernel: error {err:.3g} "
+                  f"of the largest (allowed 1e-4); {res['pcm_ms']:.1f} ms",
+                  flush=True)
+            if not err <= 1e-4:
+                fail("pcm sharded disagrees with the unsharded PCM")
+        del pcm, cam, f, want
+        torch.cuda.empty_cache()
+    with phase("overlap tile", LIMITS["overlap_tile"]):
+        model = overlap_model("cuda")
+        with torch.no_grad():
+            want, _ = model(overlap_input("cuda"))
+        want = want.cpu()
+        for r, res in enumerate(ranks):
+            err = (res["dense"] - want).abs().max().item() / \
+                want.abs().max().item()
+            print(f"# overlap tile rank {r}: {OVERLAP_SHAPE} in "
+                  f"{OVERLAP_TILES} tiles (halo {OVERLAP_HALO}) over "
+                  f"{DP_WORLD} ranks vs the unsharded forward: error "
+                  f"{err:.3g} of the largest (allowed 2^-7), "
+                  f"{'bitwise equal' if torch.equal(res['dense'], want) else 'not bitwise equal'}; "
+                  f"{res['overlap_ms']:.1f} ms; launches "
+                  f"{res['overlap_counts']}", flush=True)
+            if not err <= 2.0 ** -7:
+                fail("overlap tiles disagree with the unsharded forward")
+        del model
+        torch.cuda.empty_cache()
+    launches["overlap_tile"] = {k: sum(r["overlap_counts"][k] for r in ranks)
+                                for k in PATHS["overlap_tile"]}
+
+
+def engine_shard_phase(root, card):
+    """LesionSegTest with SHARD_SCANS = 2 over the engine split, on two
+    cards where there are two, else cuda:0 twice (two scans in flight on
+    one card): every archived mask, post mask and heatmap equal to the
+    serial engine phase's bit for bit, the same records; the chunk
+    wire's forward kernels launched (path engine_shard)."""
+    n_gpus = torch.cuda.device_count()
+    devices = ["cuda:0", "cuda:1"] if n_gpus >= 2 else ["cuda:0", "cuda:0"]
+    settings = engine_settings(root, SHARD_SCANS=2)
+    out = f"{root}/engine_shard"
+    eng = LesionSegTest(settings, output_path=out, device="cuda",
+                        devices=devices)
+    if eng._shard_count() != 2:
+        fail(f"engine shard: {eng._shard_count()} scans in flight")
+    print(f"# engine shard: 2 scans in flight on {devices} ({n_gpus} "
+          f"GPU{'s' * (n_gpus != 1)} visible), no process group", flush=True)
+    zero_counts()
+    t0 = time.perf_counter()
+    with error_log(settings) as errors:
+        rows = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = path_counts("engine_shard")
+    print(f"# engine shard: {len(rows)} scans in {wall:.2f} s wall; "
+          f"launches {counts}", flush=True)
+    print_scan_times(eng, "sharded", card)
+    if not any(f"({ENGINE_TRUNCATED})" in e for e in errors):
+        fail(f"engine shard: the truncated scan was not logged ({errors})")
+    with open(f"{root}/engine/test/records.csv") as fp:
+        serial = list(csv.DictReader(fp))
+    if [r["uid"] for r in rows] != [r["uid"] for r in serial] or any(
+            abs(float(a[k]) - float(b[k])) > 0
+            for a, b in zip(rows, serial) for k in ("dice", "iou")):
+        fail(f"engine shard: records {rows} differ from {serial}")
+    for uid in ENGINE_GOOD:
+        for sub in ("", "post/", "heatmap/"):
+            a = read_mha(f"{out}/test/{sub}{uid}.mha")["array"]
+            b = read_mha(f"{root}/engine/test/{sub}{uid}.mha")["array"]
+            if not np.array_equal(a, b):
+                fail(f"engine shard: {sub}{uid}.mha differs from the "
+                     "serial run's")
+    print(f"# engine shard: scan-sharded == serial masks, post masks and "
+          f"heatmaps bit for bit ({len(ENGINE_GOOD)} scans)", flush=True)
+    return counts
+
+
 def main():
     with phase("card", LIMITS["card"]):
         if not torch.cuda.is_available():
@@ -2957,6 +3414,9 @@ def main():
         torch.cuda.empty_cache()
         with phase("engine host-stitch", LIMITS["engine_stitch"]):
             engine_stitch_phase(root, ckpt, deploy, card)
+        torch.cuda.empty_cache()
+        with phase("engine shard", LIMITS["engine_shard"]):
+            launches["engine_shard"] = engine_shard_phase(root, card)
     del pipe, model, prepc
     torch.cuda.empty_cache()
     res.update(train_kernel_phases(gen))
@@ -3050,6 +3510,9 @@ def main():
         with phase("variant b epochs", LIMITS["variant_b_epochs"]):
             launches.update(variant_b_epochs_phase(root, card))
         torch.cuda.empty_cache()
+
+    train_dp_phases(launches)
+    context_parallel_phases(launches)
 
     kernels = []
     for k in WRAPPERS:

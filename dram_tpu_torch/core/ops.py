@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .mesh import all_reduce_sum
+
 # CT severity score -> lesion-ratio interval per lobe
 # (dram_tpu/losses/interval_reg.py:24-25)
 CTSS_RATIO_LB = np.array([0.0, 0.001, 0.01, 0.05, 0.35, 0.5], np.float32)
@@ -172,11 +174,17 @@ def masked_mean(x, mask, dims):
     return (x * m).sum(dims) / torch.clamp(m.sum(dims), min=1e-12)
 
 
-def gsum(x):
-    """Sum of every element. The JAX package's gsum adds a cross-shard
-    psum under data parallelism; the port runs on one process, where it
-    is the plain sum (the multi-device layer is ROADMAP Queue 1)."""
-    return x.sum()
+def gsum(x, group=None):
+    """Sum of every element, then the sum over the ranks of `group`
+    (dram_tpu's gsum with `axis_name`): differentiable, its gradient
+    the cross-rank sum of the incoming one, as psum transposes to psum.
+    With a loss built from gsums every rank holds the global objective,
+    and its gradient is the world size times its own rows' share; the
+    trainer's gradient mean recovers the global gradient."""
+    s = x.sum()
+    if group is None:
+        return s
+    return all_reduce_sum(s, group)
 
 
 def packbits_u8(mask):

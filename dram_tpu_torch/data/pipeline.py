@@ -3,8 +3,10 @@
 Port of dram_tpu/data/pipeline.py (`merge_dict`, `collate_dict`,
 `DataLoader`, :20-111): samples are loaded and transformed on host
 threads while the card computes, and batches are stacked into numpy
-arrays ready for one host-to-device copy. `row_range` (per-process
-loading of a multi-process mesh) is not ported: it raises.
+arrays ready for one host-to-device copy. With `row_range` (lo, hi)
+each index batch is cut to its rows [lo, hi): a rank of a data-parallel
+run loads only its share of the global batch, while the identically
+seeded sampler keeps the global index sequence the same on every rank.
 """
 
 from __future__ import annotations
@@ -43,10 +45,7 @@ class DataLoader:
     def __init__(self, dataset, sampler, batch_size, drop_last=True,
                  num_workers=4, prefetch=2, collate_fn=collate_dict,
                  row_range=None):
-        if row_range is not None:
-            raise NotImplementedError(
-                "DataLoader row_range (per-process loading of a "
-                "multi-process mesh) is not ported (ROADMAP Queue 1 item 5)")
+        self.row_range = row_range
         self.dataset = dataset
         self.sampler = sampler
         self.batch_size = batch_size
@@ -66,6 +65,9 @@ class DataLoader:
             b = idx[i:i + self.batch_size]
             if len(b) < self.batch_size and self.drop_last:
                 return
+            if self.row_range is not None:
+                lo, hi = self.row_range
+                b = b[lo:hi]
             yield b
 
     def _load(self, idxs):

@@ -25,16 +25,27 @@ per-lobe class accuracy) and archived: `<task>/<uid>.mha`, `heatmap/`,
 `<uid>.mha` exists is skipped; a scan that fails is logged with its
 traceback and the run goes on. The per-lobe class comes from the
 predicted lesion ratio through the CTSS interval table, as in dram_tpu.
-Scan-level sharding is not ported (ROADMAP Queue 1 item 5).
+
+Scan-level sharding (SHARD_SCANS, the DRAM_SHARD_SCANS environment
+variable or the CLI's --shard; dram_tpu/infer/engine.py:314-331,430-459):
+N scans in flight on N threads, each scan on one device of the engine's
+device list with that device's own copy of the model (dram_tpu's
+_params_on), its chunk upload placed there. -1 takes every device; the
+count is clamped to the devices; the host-stitch path and FAST_WIRE other
+than "wc" run serially with a warning, as in dram_tpu. The rows of
+records.csv are written once after the sharded run, in scan order.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import csv
 import os
+import threading
 import time
 import traceback
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor, as_completed
 
 import numpy as np
 import torch
@@ -55,6 +66,15 @@ from .fast import FastScanPipeline, prep_scan_chunks
 WIRES = ("wc", "w8")
 
 
+def _indexed(device):
+    """`device` as a torch.device, "cuda" as the current CUDA device
+    (so that "cuda" and "cuda:0" name one device)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def _np_metrics(pred, target, smooth=1e-5):
     inter = np.logical_and(pred, target).sum()
     union = np.logical_or(pred, target).sum()
@@ -69,11 +89,13 @@ class LesionSegTest:
     Settings, a settings file's path, a settings module or a
     with_settings namespace; with `scan_path` (and `lobe_path`) the scans
     of that directory run without references, else the settings'
-    TEST_CSV split of DB_PATH."""
+    TEST_CSV split of DB_PATH. `devices`: the devices scan-level sharding
+    spreads scans over (default every local GPU of a CUDA engine, the
+    engine's device otherwise); an entry may repeat."""
 
     def __init__(self, settings_module=None, scan_path=None, lobe_path=None,
                  output_path=None, task_name="test", use_fast_path=None,
-                 device="cuda"):
+                 device="cuda", devices=None):
         self._runner = JobRunner(settings_module, device=device)
         self.settings = self._runner.settings
         self.logger = self._runner.logger
@@ -89,12 +111,11 @@ class LesionSegTest:
         self.wire = str(getattr(s, "FAST_WIRE", "wc"))
         if use_fast_path and self.wire not in WIRES:
             raise ValueError(f"FAST_WIRE={self.wire!r}: one of {WIRES}")
-        n_shard = int(getattr(s, "SHARD_SCANS",
-                              os.environ.get("DRAM_SHARD_SCANS", "0")) or 0)
-        if n_shard > 1:
-            raise NotImplementedError(
-                f"SHARD_SCANS={n_shard}: scan-level sharding is not ported "
-                "(ROADMAP Queue 1 item 5); 0, 1 or -1 run serially")
+        if devices is None:
+            devices = [torch.device("cuda", i) for i in
+                       range(torch.cuda.device_count())] \
+                if self.device.type == "cuda" else [self.device]
+        self.devices = [_indexed(d) for d in devices]
         # fast path: raw grids in, the pipeline does the iso resample;
         # host-stitch path: the host resample up front
         resample_t = None if use_fast_path else T.Compose([
@@ -122,24 +143,51 @@ class LesionSegTest:
             "epoch": self._runner.epoch_n,
             "iteration": self._runner.current_iteration,
             "metrics": dict(self._runner.model_metrics_save_dict)}
-        self._fast_pipe = None
+        self._fast_pipes = {}
+        self._pipe_lock = threading.Lock()
         # per archived scan: uid and the wall ms of its stages (load, prep,
         # pre / model / post, archive and the screenshots within it)
         self.timings = []
 
-    def _fast(self):
-        if self._fast_pipe is None:
-            s = self.settings
-            self._fast_pipe = FastScanPipeline(
-                self.model, device=self.device,
-                chunk_size=tuple(s.RESAMPLE_SIZE),
-                windowing_span=(s.WINDOWING_MIN, s.WINDOWING_MAX),
-                pad_value=float(s.PAD_VALUE))
-        return self._fast_pipe
+    def _fast(self, device=None):
+        """The device pipeline on `device` (the engine's by default),
+        built once a device; a device other than the engine's gets its
+        own copy of the model."""
+        device = _indexed(self.device if device is None else device)
+        with self._pipe_lock:
+            if device not in self._fast_pipes:
+                s = self.settings
+                model = self.model if device == _indexed(self.device) \
+                    else copy.deepcopy(self.model)
+                self._fast_pipes[device] = FastScanPipeline(
+                    model, device=device,
+                    chunk_size=tuple(s.RESAMPLE_SIZE),
+                    windowing_span=(s.WINDOWING_MIN, s.WINDOWING_MAX),
+                    pad_value=float(s.PAD_VALUE))
+            return self._fast_pipes[device]
 
-    def process_scan_fast(self, scan_data):
+    def _shard_count(self):
+        """Scans in flight: SHARD_SCANS (or DRAM_SHARD_SCANS); 0 / 1
+        serial, -1 every device of the list; clamped to the list. Only
+        the fast "wc" path places a scan's work on a device of its own,
+        so sharding requires it."""
+        n = int(getattr(self.settings, "SHARD_SCANS",
+                        os.environ.get("DRAM_SHARD_SCANS", "0")) or 0)
+        if n == -1:
+            n = len(self.devices)
+        n = max(1, min(n, len(self.devices)))
+        if n > 1 and not self.use_fast_path:
+            self.logger.warning("SHARD_SCANS needs the fast path; serial.")
+            return 1
+        if n > 1 and self.wire != "wc":
+            self.logger.warning("SHARD_SCANS needs FAST_WIRE='wc'; serial.")
+            return 1
+        return n
+
+    def process_scan_fast(self, scan_data, device=None):
         """Fast path: the C++ host prep of the FAST_WIRE wire, then the
-        device pipeline; outputs arrive on the scan grid."""
+        device pipeline (on `device` when given); outputs arrive on the
+        scan grid."""
         s = self.settings
         meta = scan_data["meta"]
         args = (scan_data["#image"].astype(np.int16),
@@ -156,9 +204,9 @@ class LesionSegTest:
             prep = prep_scan(*args, **kw)
         prep_ms = (time.perf_counter() - t0) * 1e3
         if self.wire == "wc":
-            out = self._fast().process_chunks(prep, want_heatmap=True)
+            out = self._fast(device).process_chunks(prep, want_heatmap=True)
         else:
-            out = self._fast().process_prepped(prep, want_heatmap=True)
+            out = self._fast(device).process_prepped(prep, want_heatmap=True)
         cls_preds, cls_targets = [], []
         for li in range(1, 6):
             target = None
@@ -325,17 +373,19 @@ class LesionSegTest:
             self.logger.warning(f"screenshot failed for {uid}: {e}")
         return (time.perf_counter() - t0) * 1e3
 
-    def _run_one(self, scan_idx, uid, scan_data=None, load_ms=0.0):
-        """One scan: load -> infer -> score -> archive. Returns (records
-        row, cls_preds, cls_targets). `scan_data` may come from the
-        prefetch thread, which took `load_ms` to load it."""
+    def _run_one(self, scan_idx, uid, scan_data=None, load_ms=0.0,
+                 device=None):
+        """One scan: load -> infer (on `device` when given) -> score ->
+        archive. Returns (records row, cls_preds, cls_targets).
+        `scan_data` may come from the prefetch thread, which took
+        `load_ms` to load it."""
         t1 = time.perf_counter()
         if scan_data is None:
             scan_data, load_ms = self._load(scan_idx)
             t1 = time.perf_counter()
         meta = scan_data["meta"]
         if self.use_fast_path:
-            out = self.process_scan_fast(scan_data)
+            out = self.process_scan_fast(scan_data, device)
         else:
             out = self.process_scan(scan_data)
         t2 = time.perf_counter()
@@ -394,6 +444,81 @@ class LesionSegTest:
                              "total": load_ms + (t4 - t1) * 1e3})
         return row, out["cls_preds"], out["cls_targets"]
 
+    def _run_serial(self, rec_file, rows, n_written, scan_timer, all_preds,
+                    all_targets):
+        """Every scan in turn, the next one's load prefetched: the file
+        read and MHA decode overlap this scan's device and archive work;
+        a failed prefetch is loaded again (and raises) inside _run_one,
+        so a bad file fails its own scan only. Appends to `rows`, writes
+        records.csv every fifth scan and at the last; returns the count
+        of rows written."""
+        n = len(self.test_set)
+        with ThreadPoolExecutor(1) as prefetch_pool:
+            nxt = prefetch_pool.submit(self._load, 0) if n else None
+            for scan_idx in range(n):
+                uid = self.test_set.uids[scan_idx]
+                try:
+                    scan_data, load_ms = nxt.result()
+                except Exception:
+                    scan_data, load_ms = None, 0.0
+                if scan_idx + 1 < n:
+                    nxt = prefetch_pool.submit(self._load, scan_idx + 1)
+                start = time.time()
+                try:
+                    row, preds, targets = self._run_one(scan_idx, uid,
+                                                        scan_data, load_ms)
+                    dt = time.time() - start
+                    all_preds.extend(preds)
+                    all_targets.extend(targets)
+                    scan_timer.update(dt)
+                    rows.append(row)
+                    if scan_idx % 5 == 0 or scan_idx == n - 1:
+                        write_records(rec_file, rows, "uid")
+                        n_written = len(rows)
+                    self.logger.info(f"Finished {scan_idx} ({uid}) "
+                                     f"in {dt:.2f}s.")
+                except Exception:
+                    self.logger.error(f"Cannot process scan {scan_idx} "
+                                      f"({uid}): {traceback.format_exc()}")
+        return n_written
+
+    def _run_sharded(self, n_shard, rows, scan_timer, preds, targets):
+        """Every scan on `n_shard` threads, scan i on device i mod
+        n_shard of the list; a scan that fails is logged and the others
+        go on. Appends the new rows to `rows` in scan order."""
+        devices = self.devices[:n_shard]
+        self.logger.info(f"scan-sharded inference over {len(devices)} "
+                         f"devices: {[str(d) for d in devices]}")
+
+        def handle(i):
+            device = devices[i % len(devices)]
+            start = time.time()
+            # the kernels launch on the current device's stream: make it
+            # this scan's device in this thread
+            with torch.cuda.device(device) if device.type == "cuda" \
+                    else contextlib.nullcontext():
+                out = self._run_one(i, self.test_set.uids[i], device=device)
+            return out, time.time() - start
+
+        results = {}
+        with ThreadPoolExecutor(len(devices)) as pool:
+            futs = {pool.submit(handle, i): i
+                    for i in range(len(self.test_set))}
+            for fut in as_completed(futs):
+                i = futs[fut]
+                try:
+                    results[i] = fut.result()
+                except Exception:
+                    self.logger.error(f"Cannot process scan {i} "
+                                      f"({self.test_set.uids[i]}): "
+                                      f"{traceback.format_exc()}")
+        for i in sorted(results):
+            (row, p, t), dt = results[i]
+            preds.extend(p)
+            targets.extend(t)
+            scan_timer.update(dt)
+            rows.append(row)
+
     def _load(self, scan_idx):
         """test_set[scan_idx] and its wall ms (the prefetch thread's)."""
         t0 = time.perf_counter()
@@ -433,38 +558,14 @@ class LesionSegTest:
         scan_timer = AverageMeter()
         all_cls_preds, all_cls_targets = [], []
 
-        # one-deep prefetch: the next scan's file read and MHA decode
-        # overlap this scan's device and archive work; a failed prefetch
-        # is loaded again (and raises) inside _run_one, so a bad file
-        # fails its own scan only
-        n = len(self.test_set)
-        with ThreadPoolExecutor(1) as prefetch_pool:
-            nxt = prefetch_pool.submit(self._load, 0) if n else None
-            for scan_idx in range(n):
-                uid = self.test_set.uids[scan_idx]
-                try:
-                    scan_data, load_ms = nxt.result()
-                except Exception:
-                    scan_data, load_ms = None, 0.0
-                if scan_idx + 1 < n:
-                    nxt = prefetch_pool.submit(self._load, scan_idx + 1)
-                start = time.time()
-                try:
-                    row, preds, targets = self._run_one(scan_idx, uid,
-                                                        scan_data, load_ms)
-                    dt = time.time() - start
-                    all_cls_preds.extend(preds)
-                    all_cls_targets.extend(targets)
-                    scan_timer.update(dt)
-                    rows.append(row)
-                    if scan_idx % 5 == 0 or scan_idx == n - 1:
-                        write_records(rec_file, rows, "uid")
-                        n_written = len(rows)
-                    self.logger.info(f"Finished {scan_idx} ({uid}) "
-                                     f"in {dt:.2f}s.")
-                except Exception:
-                    self.logger.error(f"Cannot process scan {scan_idx} "
-                                      f"({uid}): {traceback.format_exc()}")
+        n_shard = self._shard_count()
+        if n_shard > 1:
+            self._run_sharded(n_shard, rows, scan_timer, all_cls_preds,
+                              all_cls_targets)
+        else:
+            n_written = self._run_serial(rec_file, rows, n_written,
+                                         scan_timer, all_cls_preds,
+                                         all_cls_targets)
         if len(rows) > n_written:
             # the rows since the last write, when the last scan failed
             write_records(rec_file, rows, "uid")

@@ -4,8 +4,10 @@ Every `csrc/*.cu` file is plain CUDA C++ with `extern "C"` launchers (no
 PyTorch, pybind11 or CUTLASS headers; `csrc/*.cuh` holds device code they
 share), so each compiles with `nvcc` in seconds. The sources compile in
 parallel, one `nvcc -c` each, and one `nvcc -shared` links them. The
-library is named by a hash of the sources, headers and flags, written under a temporary name and `os.replace`d into place, so
-a killed build never leaves a half-written library behind. The wrappers
+library is named by a hash of the sources, headers and flags, written
+under a temporary name and `os.replace`d into place under a file lock,
+so processes started together (the ranks of a data-parallel run) build
+it once and a killed build never leaves a half-written library behind. The wrappers
 bind it through `ctypes` and pass raw device pointers and the current
 stream.
 
@@ -15,6 +17,7 @@ Counterpart of the on-demand C++ build in `dram_tpu/native/__init__.py`.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -150,15 +153,24 @@ def _compile(out):
         os.replace(tmp_lib, out)
 
 
+def ensure_built(path, compile_fn=None):
+    """Build the library at `path` unless it exists, under a file lock
+    in BUILD_DIR: of processes that race here, the first builds and the
+    others wait for it and find the library built."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "kernels.lock"), "w") as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)
+        if not os.path.exists(path):
+            (compile_fn or _compile)(path)
+    return path
+
+
 def load():
     """The kernels' ctypes library, built on first use."""
     global _lib
     with _lock:
         if _lib is None:
-            path = library_path()
-            if not os.path.exists(path):
-                _compile(path)
-            lib = ctypes.CDLL(path)
+            lib = ctypes.CDLL(ensure_built(library_path()))
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes

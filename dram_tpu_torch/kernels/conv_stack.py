@@ -31,6 +31,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..core.mesh import all_reduce_sum, world_size
 from . import _build
 
 
@@ -466,28 +467,40 @@ conv3x3x3_dw.launches = 0
 # --- the two-conv stack with its gradient ---------------------------------------
 
 
-def bn_batch_stats(st, n):
+def bn_batch_stats(st, n, group=None):
     """(sum, sum of squares) over n elements -> flax's batch mean and
-    biased variance E[x^2] - E[x]^2, clamped at 0 (fused_stack._bn_stats)."""
+    biased variance E[x^2] - E[x]^2, clamped at 0 (fused_stack._bn_stats).
+    With a `group` the sums and the count are first summed over its ranks
+    (fused_stack._global_stats :455): the global batch's statistics."""
+    if group is not None:
+        st, n = all_reduce_sum(st, group), n * world_size(group)
     mean = st[0] / n
     return mean, torch.clamp(st[1] / n - mean * mean, min=0.0)
 
 
-def bn_relu_backward(d_post, out, gamma, beta, mean, var, eps):
+def bn_relu_backward(d_post, out, gamma, beta, mean, var, eps, group=None):
     """Backward of relu(BN_train(out)) at batch statistics (mean, var):
     the train branch of fused_stack._bn_back_cm (:600-634), in f32.
-    Returns (d_out in out's dtype, dgamma, dbeta)."""
+    Returns (d_out in out's dtype, dgamma, dbeta). With a `group` the
+    dbeta / dgamma terms that enter d_out are summed over its ranks and
+    the count is the global one (the batch statistics couple every
+    rank's rows); the returned dgamma / dbeta stay this rank's partial
+    sums, which the trainer's gradient mean combines."""
     inv = torch.rsqrt(var + eps)
     s = gamma * inv
     of = out.float()
     dims = tuple(range(of.dim() - 1))
-    n = math.prod(of.shape[:-1])
+    n = math.prod(of.shape[:-1]) * world_size(group)
     dp = torch.where(of * s + (beta - mean * s) > 0, d_post.float(), 0.0)
     xhat = (of - mean) * inv
     dbeta = dp.sum(dims)
     dgamma = (dp * xhat).sum(dims)
-    d_out = inv * (dp * gamma - (dbeta * gamma) / n
-                   - xhat * ((dgamma * gamma) / n))
+    dbeta_g, dgamma_g = dbeta, dgamma
+    if group is not None:
+        dbeta_g, dgamma_g = all_reduce_sum(torch.stack([dbeta, dgamma]),
+                                           group)
+    d_out = inv * (dp * gamma - (dbeta_g * gamma) / n
+                   - xhat * ((dgamma_g * gamma) / n))
     return d_out.to(out.dtype), dgamma, dbeta
 
 
@@ -496,24 +509,26 @@ class ConvStackFunction(torch.autograd.Function):
     statistics: the forward and custom VJP of fused_stack.fused_cbr2
     (_fused_fwd :541-589, _vjp_bwd :637-689). Saves the input, the raw
     bf16 conv outputs and the batch statistics, never a normalized
-    tensor.
+    tensor. With a process `group` (data parallelism; fused_cbr2's
+    `axis_name`) the statistics are the global batch's and the backward
+    sums the batch-coupled BatchNorm terms over the ranks.
 
-    apply(x1, x2, w0, g0, b0, w1, g1, b1, eps) ->
-    (y, mean0, var0, mean1, var1); x2 may be None (one input part)."""
+    apply(x1, x2, w0, g0, b0, w1, g1, b1, eps, group) ->
+    (y, mean0, var0, mean1, var1); x2 and group may be None."""
 
     @staticmethod
-    def forward(ctx, x1, x2, w0, g0, b0, w1, g1, b1, eps):
+    def forward(ctx, x1, x2, w0, g0, b0, w1, g1, b1, eps, group=None):
         n = float(math.prod(x1.shape[:4]))
         out0, st0 = conv3x3x3_train(x1, w0, x2=x2, stats=True)
-        bm0, bv0 = bn_batch_stats(st0, n)
+        bm0, bv0 = bn_batch_stats(st0, n, group)
         s0, t0 = fold_bn(g0, b0, bm0, bv0, eps)
         out1, st1 = conv3x3x3_train(out0, w1, prologue=(s0, t0), stats=True)
-        bm1, bv1 = bn_batch_stats(st1, n)
+        bm1, bv1 = bn_batch_stats(st1, n, group)
         s1, t1 = fold_bn(g1, b1, bm1, bv1, eps)
         y = torch.relu(out1.float() * s1 + t1).to(x1.dtype)
         ctx.save_for_backward(x1, x2, w0, g0, b0, w1, g1, b1, out0, out1,
                               bm0, bv0, bm1, bv1)
-        ctx.eps = eps
+        ctx.eps, ctx.group = eps, group
         ctx.mark_non_differentiable(bm0, bv0, bm1, bv1)
         return y, bm0, bv0, bm1, bv1
 
@@ -521,14 +536,16 @@ class ConvStackFunction(torch.autograd.Function):
     def backward(ctx, dy, *_unused_stat_grads):
         (x1, x2, w0, g0, b0, w1, g1, b1, out0, out1,
          bm0, bv0, bm1, bv1) = ctx.saved_tensors
-        eps = ctx.eps
+        eps, group = ctx.eps, ctx.group
         # cotangents between kernels in the activation dtype
         # (_bn_back_cm returns d_out.astype(dt)); weight gradients in f32
-        dout1, dg1, db1 = bn_relu_backward(dy, out1, g1, b1, bm1, bv1, eps)
+        dout1, dg1, db1 = bn_relu_backward(dy, out1, g1, b1, bm1, bv1, eps,
+                                           group)
         s0, t0 = fold_bn(g0, b0, bm0, bv0, eps)
         da = conv3x3x3_dx(dout1, w1)
         dw1 = conv3x3x3_dw(out0, dout1, prologue=(s0, t0))
-        dout0, dg0, db0 = bn_relu_backward(da, out0, g0, b0, bm0, bv0, eps)
+        dout0, dg0, db0 = bn_relu_backward(da, out0, g0, b0, bm0, bv0, eps,
+                                           group)
         dx1 = dx2 = None
         # the network-entry stack's input, the CT chunk, needs no gradient:
         # its dx conv is skipped (JAX zero-pads that stack's input to 8
@@ -541,4 +558,4 @@ class ConvStackFunction(torch.autograd.Function):
                 dx1, dx2 = conv3x3x3_dx(dout0, w0, split=(x1.shape[-1],
                                                           x2.shape[-1]))
         dw0 = conv3x3x3_dw(x1, dout0, x2=x2)
-        return dx1, dx2, dw0, dg0, db0, dw1, dg1, db1, None
+        return dx1, dx2, dw0, dg0, db0, dw1, dg1, db1, None, None

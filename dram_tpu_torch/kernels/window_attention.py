@@ -114,14 +114,20 @@ def generic_takes(offsets, F, G):
             and 1 <= F <= GENERIC_MAX_WIDTH and 1 <= G <= GENERIC_MAX_WIDTH)
 
 
-def valid_masks(spatial, offsets, device=None):
+def valid_masks(spatial, offsets, device=None, z0=0, z_extent=None):
     """(D, H, W, K) bool: neighbour i + offset lies inside the volume
-    (dram_tpu/models/pcm.py:_valid_masks with z0 = 0)."""
+    (dram_tpu/models/pcm.py:_valid_masks). A block of a larger volume
+    (the sharded PCM) passes `z0`, the global index of its z = 0, and
+    `z_extent`, the volume's depth: the volume's faces, not the block's,
+    decide."""
     D, H, W = spatial
-    iz = torch.arange(D, device=device)[:, None, None]
+    if z_extent is None:
+        z_extent = D
+    iz = torch.arange(D, device=device)[:, None, None] + int(z0)
     iy = torch.arange(H, device=device)[None, :, None]
     ix = torch.arange(W, device=device)[None, None, :]
-    masks = [(iz + dz >= 0) & (iz + dz < D) & (iy + dy >= 0) & (iy + dy < H)
+    masks = [(iz + dz >= 0) & (iz + dz < z_extent) & (iy + dy >= 0)
+             & (iy + dy < H)
              & (ix + dx >= 0) & (ix + dx < W) for dz, dy, dx in offsets]
     return torch.stack(masks, dim=-1)
 

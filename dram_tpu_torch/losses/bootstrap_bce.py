@@ -3,7 +3,8 @@
 Port of dram_tpu/losses/bootstrap_bce.py (`BootBinCrossEntropy` :23-70,
 `BinaryCrossEntropySmooth` :73). Every region statistic is a masked
 reduction with fixed shapes, pooled over the whole batch as the
-reference's flattened boolean indexing pools it.
+reference's flattened boolean indexing pools it, over the ranks of
+`group` under data parallelism (dram_tpu's `axis_name`).
 """
 
 from __future__ import annotations
@@ -13,9 +14,9 @@ import torch
 from ..core.ops import gsum
 
 
-def _masked_mean(x, m):
+def _masked_mean(x, m, group=None):
     m = m.to(x.dtype)
-    return gsum(x * m) / torch.clamp(gsum(m), min=1e-12)
+    return gsum(x * m, group) / torch.clamp(gsum(m, group), min=1e-12)
 
 
 class BootBinCrossEntropy:
@@ -27,7 +28,8 @@ class BootBinCrossEntropy:
         self.smoothing = smoothing
         self.eps = 1e-7
 
-    def __call__(self, p, t, voi, class_weights=None, sample_weight=None):
+    def __call__(self, p, t, voi, class_weights=None, sample_weight=None,
+                 group=None):
         t = t.to(p.dtype)
         outside = (voi < 1e-7).to(p.dtype)
         inside = (voi > 0.0).to(p.dtype)
@@ -40,20 +42,21 @@ class BootBinCrossEntropy:
 
         pt = p * t + (1.0 - p) * (1.0 - t)
         nll = -torch.log(torch.clamp(pt, self.eps, 1.0 - self.eps))
-        bceo_loss = _masked_mean(nll, outside)
+        bceo_loss = _masked_mean(nll, outside, group)
 
         # alpha balances over the whole batch
-        n_in = gsum(inside)
-        t_in = gsum(t * inside)
+        n_in = gsum(inside, group)
+        t_in = gsum(t * inside, group)
         alpha = torch.clamp(1.0 - t_in / torch.clamp(n_in, min=1e-12),
                             0.25, 0.75)
         w = (alpha * t + (1.0 - alpha) * (1.0 - t)) * inside
-        bce_loss = gsum(nll * w) / torch.clamp(gsum(w), min=1e-12)
+        bce_loss = gsum(nll * w, group) / torch.clamp(gsum(w, group),
+                                                      min=1e-12)
 
         t_hat = (p > 0.5).to(p.dtype)
         pt_hat = p * t_hat + (1.0 - p) * (1.0 - t_hat)
         nll_hat = -torch.log(torch.clamp(pt_hat, self.eps, 1.0 - self.eps))
-        bootstrap_loss = _masked_mean(nll_hat, inside)
+        bootstrap_loss = _masked_mean(nll_hat, inside, group)
 
         inside_term = (1.0 - self.smoothing) * bce_loss + \
             self.smoothing * bootstrap_loss

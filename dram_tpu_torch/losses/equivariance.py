@@ -23,6 +23,7 @@ from itertools import combinations, permutations
 import numpy as np
 import torch
 
+from ..core.ops import gsum
 from ..core.resample import resize3d
 from .interval_reg import IntRegLoss, compute_enc_loss, \
     compute_reg_loss_with_probs
@@ -174,16 +175,18 @@ class OneShotTransform:
                 f"rescale_size={self.rescale_size}")
 
 
-def smooth_l1_masked(a, b, mask, beta=1.0, sample_weight=None):
+def smooth_l1_masked(a, b, mask, beta=1.0, sample_weight=None,
+                     group=None):
     """torch F.smooth_l1_loss over the masked elements (mean); rows of
-    `sample_weight` 0 drop out."""
+    `sample_weight` 0 drop out; with a `group` the mean pools over the
+    global batch."""
     d = (a - b).abs()
     loss = torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta)
     m = mask.to(loss.dtype)
     if sample_weight is not None:
         m = m * sample_weight.to(m.dtype).reshape(
             (-1,) + (1,) * (m.dim() - 1))
-    return (loss * m).sum() / torch.clamp(m.sum(), min=1e-12)
+    return gsum(loss * m, group) / torch.clamp(gsum(m, group), min=1e-12)
 
 
 class IntRegAffLoss(IntRegLoss):
@@ -217,7 +220,7 @@ class IntRegAffLoss(IntRegLoss):
 
     def __call__(self, model_fn, images, lobes, lesions, ctsses,
                  ctss_frequency=None, rng=None, sample_weight=None,
-                 transform=None, **kwargs):
+                 transform=None, group=None, **kwargs):
         """`rng`: the torch.Generator T is drawn from (seed 0 when None);
         `transform`: a given T instead."""
         T = transform or self._draw(rng, images)
@@ -229,17 +232,18 @@ class IntRegAffLoss(IntRegLoss):
         probs = torch.sigmoid(dense_outs)
         reg_loss = compute_reg_loss_with_probs(
             probs, lobes, lesions, ctsses, self.band_width, ctss_frequency,
-            sample_weight)
-        enc_loss = compute_enc_loss(probs, sample_weight)
+            sample_weight, group)
+        enc_loss = compute_enc_loss(probs, sample_weight, group)
 
         aff_dense, _ = model_fn(aff_images, aff_lobes)
         aff_probs = torch.sigmoid(aff_dense)
         aff_reg_loss = compute_reg_loss_with_probs(
             aff_probs, aff_lobes, aff_lesions, ctsses, self.band_width,
-            ctss_frequency, sample_weight)
+            ctss_frequency, sample_weight, group)
 
         aff_loss = smooth_l1_masked(T(probs), aff_probs, aff_lobes > 0,
-                                    sample_weight=sample_weight)
+                                    sample_weight=sample_weight,
+                                    group=group)
         return (reg_loss + aff_reg_loss) / 2.0, aff_loss, enc_loss
 
 
@@ -257,7 +261,7 @@ class IntRegAffRefineLoss(IntRegAffLoss):
 
     def __call__(self, model_fn, images, lobes, lesions, ctsses,
                  ctss_frequency=None, rng=None, sample_weight=None,
-                 transform=None, **kwargs):
+                 transform=None, group=None, **kwargs):
         T = transform or self._draw(rng, images)
         aff_images = T(images)
         aff_lobes = T(lobes, is_reference=True)
@@ -267,25 +271,27 @@ class IntRegAffRefineLoss(IntRegAffLoss):
         probs = torch.sigmoid(dense_outs)
         reg_loss = compute_reg_loss_with_probs(
             probs, lobes, lesions, ctsses, self.band_width, ctss_frequency,
-            sample_weight)
+            sample_weight, group)
 
         aff_dense, aff_refined = model_fn(aff_images, aff_lobes)
         aff_probs = torch.sigmoid(aff_dense)
         aff_reg_loss = compute_reg_loss_with_probs(
             aff_probs, aff_lobes, aff_lesions, ctsses, self.band_width,
-            ctss_frequency, sample_weight)
+            ctss_frequency, sample_weight, group)
 
         inside = aff_lobes > 0
         aff_loss = smooth_l1_masked(T(probs), aff_probs, inside,
-                                    sample_weight=sample_weight)
+                                    sample_weight=sample_weight,
+                                    group=group)
         aff_loss_cls = smooth_l1_masked(T(refined_dense_outs), aff_refined,
-                                        inside, sample_weight=sample_weight)
+                                        inside, sample_weight=sample_weight,
+                                        group=group)
         seg_loss = self.seg_loss.compute_seg_loss(
             dense_outs, refined_dense_outs, lobes, lesions, ctsses,
-            sample_weight)
+            sample_weight, group)
         seg_aff_loss = self.seg_loss.compute_seg_loss(
             aff_dense, aff_refined, aff_lobes, aff_lesions, ctsses,
-            sample_weight)
+            sample_weight, group)
         return ((reg_loss + aff_reg_loss) / 2.0,
                 (aff_loss + aff_loss_cls) / 2.0,
                 (seg_loss + seg_aff_loss) / 2.0)

@@ -7,8 +7,8 @@ implies an interval of admissible lesion-volume ratios per lobe; the
 predicted ratio (lobe-masked mean of the sigmoid CAM) is penalised with a
 squared hinge for leaving the intersection of that interval with a band
 around the intensity-derived pseudo-ratio. Branchless and fixed-shape as
-in the JAX package. Single process: the JAX package's cross-shard sums
-(`axis_name`) are plain sums here.
+in the JAX package. Under data parallelism (`group`, dram_tpu's
+`axis_name`) the batch sums run over the ranks (core/ops.gsum).
 """
 
 from __future__ import annotations
@@ -61,23 +61,28 @@ def ratio_to_label(ratios):
     return labels
 
 
-def compute_enc_loss(p, sample_weight=None):
+def compute_enc_loss(p, sample_weight=None, group=None):
     """Entropy regulariser pushing probabilities toward {0, 1}; with
-    `sample_weight` (B,), rows of weight 0 are excluded exactly."""
+    `sample_weight` (B,), rows of weight 0 are excluded exactly; with a
+    `group` the mean pools over the global batch."""
     ent = (-p * torch.log(p + 1e-7)) + (p - 1.0) * torch.log(1.0 - p + 1e-7)
     if sample_weight is None:
-        return gsum(ent) / ent.numel()
+        n = torch.tensor(float(ent.numel()), dtype=ent.dtype,
+                         device=ent.device)
+        return gsum(ent, group) / gsum(n, group)
     w = sample_weight.to(ent.dtype)
     per_sample = ent.mean(tuple(range(1, ent.dim())))
-    return gsum(per_sample * w) / torch.clamp(gsum(w), min=1e-12)
+    return gsum(per_sample * w, group) / \
+        torch.clamp(gsum(w, group), min=1e-12)
 
 
 def compute_reg_loss_with_probs(probs, lobes, lesion_candidates, ctsses,
                                 band_width, ctss_frequency=None,
-                                sample_weight=None):
+                                sample_weight=None, group=None):
     """probs/lobes/lesion_candidates: (B, D, H, W, 1); ctsses: (B,) ints.
     The summed squared-hinge interval loss, weighted by the inverse
-    clamped label frequency; `sample_weight` (B,) zeroes rows exactly."""
+    clamped label frequency; `sample_weight` (B,) zeroes rows exactly;
+    with a `group` the sum runs over the global batch."""
     if ctss_frequency is None:
         ctss_frequency = DEFAULT_CTSS_FREQUENCY
     freq = torch.as_tensor(ctss_frequency, dtype=torch.float32,
@@ -99,7 +104,7 @@ def compute_reg_loss_with_probs(probs, lobes, lesion_candidates, ctsses,
     per_sample = loss_unweight / wf
     if sample_weight is not None:
         per_sample = per_sample * sample_weight.to(per_sample.dtype)
-    return gsum(per_sample)
+    return gsum(per_sample, group)
 
 
 class IntRegLoss:
@@ -117,11 +122,11 @@ class IntRegLoss:
 
     def __call__(self, model_fn, images, lobes, lesions, ctsses,
                  ctss_frequency=None, rng=None, sample_weight=None,
-                 **kwargs):
+                 group=None, **kwargs):
         dense_outs, _ = model_fn(images, lobes)
         probs = torch.sigmoid(dense_outs)
         reg_loss = compute_reg_loss_with_probs(
             probs, lobes, lesions, ctsses, self.band_width, ctss_frequency,
-            sample_weight)
-        enc_loss = compute_enc_loss(probs, sample_weight)
+            sample_weight, group)
+        enc_loss = compute_enc_loss(probs, sample_weight, group)
         return reg_loss, enc_loss

@@ -40,22 +40,22 @@ class IntRegRefineLoss(IntRegLoss):
         self.bootstrap_loss = BootBinCrossEntropy(smoothing)
 
     def compute_seg_loss(self, dense_outs, refined_dense_outs, lobes,
-                         lesions, ctsses, sample_weight=None):
+                         lesions, ctsses, sample_weight=None, group=None):
         pseudo = pseudo_labels(dense_outs, lobes, lesions, ctsses)
         p = torch.sigmoid(refined_dense_outs)
         voi = (lobes > 0).to(p.dtype)
         return self.bootstrap_loss(p, pseudo, voi,
-                                   sample_weight=sample_weight)
+                                   sample_weight=sample_weight, group=group)
 
     def __call__(self, model_fn, images, lobes, lesions, ctsses,
                  ctss_frequency=None, rng=None, sample_weight=None,
-                 **kwargs):
+                 group=None, **kwargs):
         dense_outs, refined_dense_outs = model_fn(images, lobes)
         probs = torch.sigmoid(dense_outs)
         reg_loss = compute_reg_loss_with_probs(
             probs, lobes, lesions, ctsses, self.band_width, ctss_frequency,
-            sample_weight)
+            sample_weight, group)
         seg_loss = self.compute_seg_loss(dense_outs, refined_dense_outs,
                                          lobes, lesions, ctsses,
-                                         sample_weight)
+                                         sample_weight, group)
         return reg_loss, seg_loss

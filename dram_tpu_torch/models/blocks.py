@@ -24,7 +24,11 @@ use_fused_stack, its accelerator default) or unfused:
   takes the first tied maximum (flax's nn.max_pool).
 
 A stack without a norm has conv biases (dram_tpu/models/unet3d.py:71).
-Both paths update the BatchNorm running statistics as flax does.
+Both paths update the BatchNorm running statistics as flax does. Under
+data parallelism `set_process_group` hands the process group to every
+BatchNorm and fused stack (dram_tpu's model.clone(axis_name=...)): the
+train-mode statistics become the global batch's, so the running
+statistics agree on every rank.
 Submodule and parameter names follow the flax tree, the same for both
 (see dram_tpu_torch.weights).
 """
@@ -36,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.mesh import all_reduce_sum, world_size
 from ..core.resample import resize3d, upsample2x_local
 from ..kernels import conv3d, conv_stack, pool, upsample
 
@@ -78,14 +83,24 @@ class BatchNorm(nn.Module):
     the same running-statistic update; in eval mode flax would write the
     running statistics in an apply whose batch_stats are not mutable and
     raises (ModifyScopeVariableError), so this raises too. `affine=False`
-    ('bntna') has no scale or shift."""
+    ('bntna') has no scale or shift.
+
+    `group` (set by set_process_group): in train mode the batch mean and
+    E[x^2] are averaged over its ranks, as flax's BatchNorm with
+    `axis_name` pmeans them ('bn', 'sbn'). dram_tpu builds 'bnt' and
+    'bntna' and DC3DATGeneric's tap heads without `axis_name`, so under
+    data parallelism their statistics stay local to a rank: `batch_only`
+    norms and `cross_rank=False` ignore the group likewise."""
 
     momentum = 0.9
 
-    def __init__(self, c, eps=1e-5, affine=True, batch_only=False):
+    def __init__(self, c, eps=1e-5, affine=True, batch_only=False,
+                 cross_rank=True):
         super().__init__()
         self.eps = eps
         self.batch_only = batch_only
+        self.cross_rank = cross_rank and not batch_only
+        self.group = None
         self.weight = nn.Parameter(torch.ones(c)) if affine else None
         self.bias = nn.Parameter(torch.zeros(c)) if affine else None
         self.register_buffer("running_mean", torch.zeros(c))
@@ -115,8 +130,12 @@ class BatchNorm(nn.Module):
         if self.training:
             xs = x.float()
             dims = tuple(range(xs.dim() - 1))
-            mean = xs.mean(dims)
-            var = torch.clamp((xs * xs).mean(dims) - mean * mean, min=0.0)
+            mean, mean2 = xs.mean(dims), (xs * xs).mean(dims)
+            group = self.group if self.cross_rank else None
+            if group is not None:
+                mean, mean2 = all_reduce_sum(torch.stack([mean, mean2]),
+                                             group) / world_size(group)
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
             self.update_running(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
@@ -157,6 +176,15 @@ class GroupNorm(nn.Module):
         if self.bias is not None:
             y = y + self.bias
         return y.to(x.dtype)
+
+
+def set_process_group(model, group):
+    """Hand the data-parallel process `group` (None: one process) to
+    every BatchNorm and conv stack of `model`; returns the model."""
+    for m in model.modules():
+        if isinstance(m, (BatchNorm, ConvStack)):
+            m.group = group
+    return model
 
 
 def make_norm(norm_method, c):
@@ -284,6 +312,7 @@ class ConvStack(nn.Module):
         self.fused = fused and fused_supported(
             features, self.kernel_sizes, self.paddings, norm_method,
             act_method, dropout)
+        self.group = None
         use_bias = norm_method is None or norm_method == "none"
         self.norm_names = []
         for i, (c_in, c) in enumerate(zip([ci] + list(features[:-1]),
@@ -335,7 +364,7 @@ class ConvStack(nn.Module):
             return conv_stack.conv3x3x3(y, self.conv_1.weight, s1, t1)
         y, m0, v0, m1, v1 = conv_stack.ConvStackFunction.apply(
             x, x2, self.conv_0.weight, bn0.weight, bn0.bias,
-            self.conv_1.weight, bn1.weight, bn1.bias, bn0.eps)
+            self.conv_1.weight, bn1.weight, bn1.bias, bn0.eps, self.group)
         bn0.update_running(m0, v0)
         bn1.update_running(m1, v1)
         return y

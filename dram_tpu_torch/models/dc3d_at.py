@@ -28,12 +28,14 @@ from .unet3d import DC3D
 
 
 class _ReshapeHead(nn.Module):
-    """1x1x1 conv + BN + ReLU tap head."""
+    """1x1x1 conv + BN + ReLU tap head. dram_tpu builds its BatchNorm
+    without `axis_name` (dram_tpu/models/dc3d_at.py:165): under data
+    parallelism its statistics are local to a rank."""
 
     def __init__(self, ci, features):
         super().__init__()
         self.conv = Conv1x1(ci, features)
-        self.bn = BatchNorm(features)
+        self.bn = BatchNorm(features, cross_rank=False)
 
     def forward(self, x):
         return torch.relu(self.bn(self.conv(x))).to(x.dtype)

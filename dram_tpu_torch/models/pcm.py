@@ -1,7 +1,6 @@
 """PCM: the pixel-correlation refinement as masked stencil attention.
 
-Port of dram_tpu/models/pcm.py:145-309 on the whole volume (z0 = 0):
-each voxel attends to its k^3-stencil neighbours (stencil_offsets, any
+Port of dram_tpu/models/pcm.py:145-358: each voxel attends to its k^3-stencil neighbours (stencil_offsets, any
 k_size, connectivity and self loop) with a validity mask at the volume's
 faces,
 
@@ -23,8 +22,14 @@ an all-invalid row's softmax maximum is pinned to 0.
 f_dim = 0 and g_dim = 0 drop the theta/phi and G/r dense layers (identity
 projections); geo_f_dim > 0 adds the geo_theta / geo_phi layers on the
 positional encoding. The dense layers run in f32 where dram_tpu runs them
-in the compute dtype. Not ported here: z0 != 0, z_extent and pcm_sharded,
-the spatially sharded PCM (ROADMAP Queue 1 item 5).
+in the compute dtype.
+
+A block of a larger volume passes `z0` (the global index of its z = 0)
+and `z_extent` (the volume's depth): validity and the positional
+encoding follow global z, and such a block takes the plain path, as in
+dram_tpu (:231-233). `pcm_sharded` (:312-358) runs the PCM context
+parallel over the ranks of a process group: the D axis padded to the
+world and split, one halo of f and one of cam per iteration.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.mesh import all_gather_cat, halo_exchange, rank, world_size
 from ..kernels import window_attention
 from ..kernels.window_attention import _shift, stencil_offsets, valid_masks
 
@@ -42,10 +48,11 @@ MERGE_TYPES = ("l2", "sm", "l2sm", "scaled_dot_product",
                "l2smrelu", "cosine", "smrelu", "heu1", "heu2")
 
 
-def build_geo_feature(spatial_size, p_enc_dim, device=None):
+def build_geo_feature(spatial_size, p_enc_dim, device=None, z0=0):
     """Sin/cos 3-D positional encoding, channels last (D, H, W,
-    p_enc_dim), f32: dram_tpu/models/pcm.py:build_geo_feature_z0 at
-    z0 = 0 (equal to build_geo_feature, :53). The channel range
+    p_enc_dim), f32: dram_tpu/models/pcm.py:build_geo_feature_z0 (at
+    z0 = 0 equal to build_geo_feature, :53); local z index i encodes
+    position z0 + i. The channel range
     [d * d_model, (d + 1) * d_model) encodes axis d, even channels sin,
     odd channels cos, frequencies 1e-4^(2j / d_model)."""
     nd = len(spatial_size)
@@ -61,7 +68,10 @@ def build_geo_feature(spatial_size, p_enc_dim, device=None):
         shape = [1] * nd
         shape[d] = spatial_size[d]
         grid = torch.arange(spatial_size[d], dtype=torch.float32,
-                            device=device).reshape(shape)
+                            device=device)
+        if d == 0:
+            grid = grid + float(z0)
+        grid = grid.reshape(shape)
         arg = grid.expand(*spatial_size)[..., None] * div
         sc = torch.stack([torch.sin(arg), torch.cos(arg)], dim=-1)
         parts.append(sc.reshape(*spatial_size, d_model))
@@ -169,27 +179,30 @@ class PCM(nn.Module):
         layer = getattr(self, name, None)
         return layer(x) if layer is not None else x
 
-    def _iterate(self, cam, attend):
-        for _ in range(self.non_local_iter):
+    def _iterate(self, cam, attend, iters):
+        for _ in range(self.non_local_iter if iters is None else iters):
             out = attend(self._proj("G", cam))
             refined = self._proj("r", out)
             cam = refined + cam if self.residual else refined
         return cam
 
-    def forward(self, cam, f):
+    def forward(self, cam, f, z0=0, z_extent=None, iters=None):
+        """`z0` / `z_extent` place the block in a larger volume (global
+        z decides validity and the encoding); `iters` overrides
+        non_local_iter (pcm_sharded runs one at a time)."""
         # f32 (float64 inputs keep float64 on the plain path: the tests'
         # reference precision for the ill-conditioned merge types)
         dt = torch.float64 if f.dtype == torch.float64 else torch.float32
         cam, f = cam.to(dt), f.to(dt)
         theta = self._proj("theta", f)
         phi = self._proj("phi", f)
-        if self.uses_kernel:
+        if self.uses_kernel and z0 == 0 and z_extent is None:
             theta, phi = theta.contiguous(), phi.contiguous()
             return self._iterate(cam, lambda g: window_attention
                                  .stencil_attention(theta, phi,
                                                     g.contiguous(),
-                                                    self.offsets))
-        w = self.edge_weights(theta, phi)
+                                                    self.offsets), iters)
+        w = self.edge_weights(theta, phi, z0, z_extent)
         offsets = self.offsets
 
         def attend(g):
@@ -197,19 +210,20 @@ class PCM(nn.Module):
             for k, off in enumerate(offsets):
                 out = out + w[..., k:k + 1] * _shift(g, off)
             return out
-        return self._iterate(cam, attend)
+        return self._iterate(cam, attend, iters)
 
-    def edge_weights(self, theta, phi):
+    def edge_weights(self, theta, phi, z0=0, z_extent=None):
         """The plain path's attention weights (B, D, H, W, K) from the
         per-offset edge statistics (dram_tpu :263-296)."""
         spatial = tuple(theta.shape[1:4])
         offsets = self.offsets
-        valid = valid_masks(spatial, offsets, theta.device).to(theta.dtype)
+        valid = valid_masks(spatial, offsets, theta.device, z0,
+                            z_extent).to(theta.dtype)
         deg = valid.sum(-1)
         geo_theta = geo_phi = None
         if self.p_enc_dim > 0:
             geo = build_geo_feature(spatial, self.p_enc_dim,
-                                    theta.device).to(theta.dtype)
+                                    theta.device, z0).to(theta.dtype)
             geo = geo[None].expand(theta.shape[0], *geo.shape)
             geo_theta = self._proj("geo_theta", geo)
             geo_phi = self._proj("geo_phi", geo)
@@ -245,3 +259,36 @@ class PCM(nn.Module):
                 acc["absdiff"].append((theta - phi_j).abs().sum(-1))
         acc = {k: torch.stack(v, -1) for k, v in acc.items() if v}
         return merge_weights(mt, acc, valid[None], deg[None])
+
+
+def pcm_sharded(pcm, cam, f, group):
+    """Context-parallel PCM (dram_tpu/models/pcm.py:pcm_sharded): every
+    rank holds the whole (B, D, H, W, C) `cam` and `f`; D is padded with
+    zero planes to a multiple of the world (the pad planes lie at global
+    z >= D, which validity excludes, and their outputs are dropped) and
+    each rank takes its block, extends f by one halo and cam by one halo
+    per iteration (halo_exchange), runs `pcm` with its block's global z
+    origin and the volume's depth, and crops. The blocks are gathered:
+    every rank returns the whole refined cam. The halo is the largest
+    |dz| of the stencil's offsets (k = 5 stencils at connectivity 1 and
+    2 are asymmetric)."""
+    halo = max(abs(o[0]) for o in pcm.offsets)
+    D = cam.shape[1]
+    n, r = world_size(group), rank(group)
+    d_pad = (-D) % n
+    if d_pad:
+        widths = (0, 0, 0, 0, 0, 0, 0, d_pad)
+        cam = torch.nn.functional.pad(cam, widths)
+        f = torch.nn.functional.pad(f, widths)
+    d_local = cam.shape[1] // n
+    cam_blk = cam[:, r * d_local:(r + 1) * d_local].contiguous()
+    f_ext = halo_exchange(f[:, r * d_local:(r + 1) * d_local].contiguous(),
+                          halo, 1, group)
+    z0 = r * d_local - halo
+    out = cam_blk
+    for _ in range(pcm.non_local_iter):
+        cam_ext = halo_exchange(out, halo, 1, group)
+        ref = pcm(cam_ext, f_ext, z0=z0, z_extent=D, iters=1)
+        out = ref[:, halo:halo + d_local].contiguous()
+    out = all_gather_cat(out, group, dim=1)
+    return out[:, :D] if d_pad else out

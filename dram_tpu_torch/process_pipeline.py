@@ -1,11 +1,13 @@
 """Full-scan inference CLI of the port:
 
     python3 -m dram_tpu_torch.process_pipeline --input DIR --lobes DIR \\
-        --output DIR [--smp SETTINGS.py] [--ckp_path CKPT] [--device cuda]
+        --output DIR [--smp SETTINGS.py] [--ckp_path CKPT] [--shard N] \
+        [--device cuda]
 
-The flags of the JAX package's process_pipeline.py, without --shard
-(scan-level sharding is not ported, ROADMAP Queue 1 item 5) and with
---device (default cuda; pass cpu to run the plain versions on the host).
+The flags of the JAX package's process_pipeline.py, and --device (default
+cuda; pass cpu to run the plain versions on the host). --shard N sets
+SHARD_SCANS: N scans in flight, one per local GPU ("auto" or -1: every
+GPU; see infer/engine.py).
 The default settings are the port's configs/st_dram_ref_att.py, whose
 paths follow DRAM_DATA_ROOT and DRAM_OUTPUT_ROOT. Checkpoints come from
 --ckp_path, else the newest one under the settings' MODEL_ROOT_PATH /
@@ -27,6 +29,9 @@ def run_testing_job(args):
     if args.ckp_path is not None:
         settings.RELOAD_CHECKPOINT_PATH = args.ckp_path
     settings.RELOAD_CHECKPOINT = True
+    if args.shard:
+        settings.SHARD_SCANS = -1 if args.shard in ("auto", "-1") \
+            else int(args.shard)
     runner = LesionSegTest(settings_module=settings,
                            scan_path=args.input,
                            lobe_path=args.lobes,
@@ -51,6 +56,9 @@ def main(argv=None):
     parser.add_argument("--ckp_path", type=str, default=None,
                         help="checkpoint to load")
     parser.add_argument("--task_name", type=str, default="test")
+    parser.add_argument("--shard", type=str, default=None,
+                        help="scan-level parallelism: N scans in flight, "
+                             "one per GPU ('auto'/'-1' = every local GPU)")
     parser.add_argument("--use_test_split", action="store_true",
                         help="score the settings' TEST_CSV split instead of "
                              "an input directory")

@@ -3,6 +3,15 @@
     python3 -m dram_tpu_torch.train [PRETRAIN] [LR] [--batch_size N] \\
         [--smp SETTINGS.py] [--ckp_path CKPT] [--device cuda]
 
+Data parallel on one host with N GPUs (or N CPU processes with
+--device cpu):
+
+    torchrun --nproc-per-node N -m dram_tpu_torch.train [...]
+
+Each rank joins torchrun's process group (core/mesh.py) and takes
+cuda:LOCAL_RANK (ranks that outnumber the GPUs share them, over gloo)
+or the CPU; without torchrun nothing changes.
+
 The surface of the JAX package's train.py: positional `pretrain` (reload
 a checkpoint when > 0) and `lr`, --batch_size, --smp and --ckp_path, each
 overriding the loaded settings, and --device (default cuda; pass cpu to
@@ -15,7 +24,9 @@ train/chunk_train.py).
 import os
 from argparse import ArgumentParser
 
+from dram_tpu_torch import require_cuda
 from dram_tpu_torch.configs import get_callable_by_name
+from dram_tpu_torch.core.mesh import local_device, maybe_init_distributed
 from dram_tpu_torch.utils import Settings
 
 DEFAULT_SETTINGS = os.path.join(
@@ -32,7 +43,14 @@ def run_training_job(args):
     settings.RELOAD_CHECKPOINT = args.pretrain > 0
     settings.TRAIN_BATCH_SIZE = args.batch_size
     runner_cls = get_callable_by_name(settings.JOB_RUNNER_CLS)
-    runner = runner_cls(settings, device=args.device)
+    device = args.device
+    kind = device.split(":")[0]
+    if kind == "cuda":
+        # a CUDA request without a GPU raises here, before any group forms
+        require_cuda(device)
+    if maybe_init_distributed(kind):
+        device = local_device(kind)
+    runner = runner_cls(settings, device=device)
     runner.run()
     return runner
 

@@ -1,8 +1,8 @@
 """The training epoch loop: lobe chunks from disk, validation on full
 scans, records, checkpoints and resume.
 
-Port of dram_tpu/train/trainer.py:LesionSegChunkTrain (:650-1073) on one
-device. Per epoch: `reset_data` rebuilds the chunk dataset
+Port of dram_tpu/train/trainer.py:LesionSegChunkTrain (:650-1073). Per
+epoch: `reset_data` rebuilds the chunk dataset
 (TRAIN_DATASET_CLS), its balanced sampler (SAMPLER_CLS, seeded with
 RANDOM_SEED + 9973 * epoch) and the threaded loader, whose threads also
 pack each batch for the wire (TRAIN_WIRE); `train` takes the epoch's
@@ -19,6 +19,13 @@ optimizer at once, as torch's schedulers do), appends a row to
 records.csv, and saves `{epoch}.ckpt` every STATE_EPOCHS and at the end.
 A resumed run starts again at the checkpoint's epoch, as the JAX loop
 does.
+
+On N ranks (torchrun; runner.py): the sampler is seeded the same on every
+rank, so all agree on the global batch; `_device_batch` pads it to the
+world and hands each rank its rows and their weights (:756-782), from its
+own rows only with PER_PROCESS_LOADING; validation runs once, on rank 0,
+and its result reaches every rank; only rank 0 writes records.csv,
+scalars, tiles and checkpoints.
 
 One nn.Module serves both modes. Two traps follow, each handled here:
 FastScanPipeline puts the model in eval mode, and TrainStep puts it back
@@ -37,6 +44,8 @@ import numpy as np
 import torch
 
 from ..configs import get_callable_by_name
+from ..core.mesh import (broadcast_object, local_batch_rows, pad_batch,
+                         rank, world_size)
 from ..core.ops import find_crops_np, windowing_np
 from ..core.resample import resize3d_np
 from ..data import transforms as T
@@ -133,7 +142,7 @@ class LesionSegChunkTrain(JobRunner):
         self.tr_loader = DataLoader(
             tr_dataset, sampler, batch_size=self.loader_batch_size,
             drop_last=True, num_workers=getattr(s, "NUM_WORKERS", 4) or 0,
-            collate_fn=collate_packed)
+            collate_fn=collate_packed, row_range=self._loader_row_range)
         self.num_steps = len(self.tr_loader)
 
         val_cls = get_callable_by_name(getattr(
@@ -143,6 +152,32 @@ class LesionSegChunkTrain(JobRunner):
             transforms=self.get_data_transforms(False), keep_sorted=True)
 
     # -- train ---------------------------------------------------------
+    def _device_batch(self, batch):
+        """The TrainStep arguments of this rank: one process takes the
+        whole batch; on N ranks the global batch is padded to the world
+        with wrap-around rows of weight 0 and the rank takes its rows, or,
+        with per-rank loading, its own rows are padded to its share.
+        Returns (arguments, rows of the padded global batch)."""
+        world = world_size(self.group)
+        keys = ("images", "lobes", "lesions", "ctss", "span")
+        arrays = tuple(batch[k] for k in keys)
+        b = int(arrays[0].shape[0])
+        if world == 1:
+            weights = np.ones(b, np.float32)
+        elif self._local_rows is not None:
+            (lo, hi), _, n_real = self._local_rows
+            idx = np.arange(hi - lo) % b
+            arrays = tuple(np.asarray(a)[idx] for a in arrays)
+            weights = np.zeros(hi - lo, np.float32)
+            weights[:n_real] = 1.0
+        else:
+            arrays, weights = pad_batch(arrays, world)
+            (lo, hi), _ = local_batch_rows(world, rank(self.group), b)
+            arrays = tuple(np.asarray(a)[lo:hi] for a in arrays)
+            weights = weights[lo:hi]
+        local = dict(batch, **dict(zip(keys, arrays)), weights=weights)
+        return batch_tensors(local, self.device), len(weights) * world
+
     def _dump_train_trace(self, images, lobes, step_idx, transform_state,
                           max_samples=2):
         """Dense and refined CAM tiles of the training batch's first
@@ -207,7 +242,7 @@ class LesionSegChunkTrain(JobRunner):
         losses = []
         for step_idx, batch in enumerate(self.tr_loader):
             data_time.update(time.time() - end)
-            args = batch_tensors(batch, self.device)
+            args, n_rows = self._device_batch(batch)
             args["freq"] = freq
             if hasattr(self.loss_func, "epoch_reseed"):
                 self.loss_func.epoch_reseed(
@@ -218,7 +253,7 @@ class LesionSegChunkTrain(JobRunner):
             self.current_iteration += 1
             if peak is not None:
                 peak = max(peak, out["peak_mib"])
-            if trace_on and (step_idx == 0 or (
+            if trace_on and self.writer and (step_idx == 0 or (
                     trace_steps and step_idx % trace_steps == 0)):
                 try:
                     self._dump_train_trace(
@@ -229,7 +264,7 @@ class LesionSegChunkTrain(JobRunner):
             if pending is not None:
                 losses.append(float(pending[0]))
                 loss_record.update(losses[-1], pending[2])
-            pending = (out["loss"], out["losses"], args["images"].shape[0])
+            pending = (out["loss"], out["losses"], n_rows)
             batch_time.update(time.time() - end)
             end = time.time()
             if self.current_iteration % s.LOG_STEPS == 0:
@@ -353,7 +388,17 @@ class LesionSegChunkTrain(JobRunner):
     def validate(self):
         """Every validation scan in eval mode without grad (the mode found
         is restored after): val_time (s a scan) and val_acc_reg_cls; the
-        confusion matrix under debug_path/<epoch>/."""
+        confusion matrix under debug_path/<epoch>/. On N ranks rank 0
+        validates and every rank returns its result (and its
+        val_timings)."""
+        v = timings = None
+        if self.writer:
+            v = self._validate()
+            timings = self.val_timings
+        v, self.val_timings = broadcast_object((v, timings), self.group)
+        return v
+
+    def _validate(self):
         self.logger.info(f"validating {len(self.val_dataset)} scans at epoch "
                          f"{self.epoch_n}")
         val_time = AverageMeter()
@@ -408,8 +453,9 @@ class LesionSegChunkTrain(JobRunner):
                        "learning_rate": self.scheduler.lr}
                 row.update(self.model_metrics_save_dict)
                 self.train_records.append(row)
-                write_records(self.exp_path + "/records.csv",
-                              self.train_records, "epoch")
+                if self.writer:
+                    write_records(self.exp_path + "/records.csv",
+                                  self.train_records, "epoch")
                 self.scheduler.step()
                 self.scheduler.apply(self.optimizer)
             ple = int(getattr(s, "PARAM_LOG_EPOCHS", 0) or 0)

@@ -1,8 +1,7 @@
 """Runner scaffolding: settings, logging, output paths, the model, its
 training objects, checkpoints and their reload.
 
-Port of dram_tpu/train/trainer.py:JobRunner (:213-640) on one device:
-the settings, `logging.config.dictConfig(LOGGING)` (basicConfig without
+Port of dram_tpu/train/trainer.py:JobRunner (:213-640): the settings, `logging.config.dictConfig(LOGGING)` (basicConfig without
 one), `exp_path` / `debug_path` and their settings.txt; `init` (the
 model of MODEL through build_model, with COMPUTE_DTYPE activations,
 initialised from RANDOM_SEED by an explicit torch.Generator);
@@ -14,9 +13,16 @@ optimizer, scheduler and metrics). One nn.Module serves training and
 validation: the JAX runner's two flax modules over one parameter tree
 (:303-313) become its train and eval modes, so no weights are copied.
 
-The multi-device options raise, naming their ROADMAP Queue 1 item:
-DCN_MESH_SIZE, DP_BATCH_MODE other than "pad" and PER_PROCESS_LOADING
-(item 5). Optimizer groups (OPTIMIZER["groups"]) are trainer.build_optimizer's.
+Under torchrun (core/mesh.maybe_init_distributed) the runner is one rank
+of a data-parallel run (:372-418): TrainStep gets the process group;
+DP_BATCH_MODE "pad" keeps TRAIN_BATCH_SIZE as the global batch and pads
+it to the world with weight-0 rows, "scale" makes it B x world;
+DCN_MESH_SIZE must divide the world (the flat rank order is best_mesh's
+(dcn, ici) order); PER_PROCESS_LOADING (on by default above one rank)
+makes each rank load only its rows of the global batch. Only rank 0
+writes settings.txt, scalars and checkpoints; every rank reads a
+checkpoint it reloads. Optimizer groups (OPTIMIZER["groups"]) are
+trainer.build_optimizer's.
 """
 
 from __future__ import annotations
@@ -30,12 +36,36 @@ import torch
 
 from .. import require_cuda, weights
 from ..configs import get_callable_by_name
+from ..core.mesh import (check_dcn_size, data_group, is_writer,
+                         local_batch_rows, rank, world_size)
 from ..utils import Settings, get_value_recursively
 from ..viz import SummaryWriter
 from .checkpoint import (load_checkpoint, load_optimizer_state,
                          newest_checkpoint, optimizer_state_tree,
                          save_checkpoint, tolerant_merge)
 from .trainer import ExponentialLR, TrainStep, build_model, build_optimizer
+
+
+def rank_rows(world, rank_, batch):
+    """Per-rank loading of a global batch of `batch` rows: (((lo, hi) of
+    the padded batch this rank owns, the padded size, its real row
+    count), the rows [lo, hi) its loader reads: clipped to the batch, at
+    least one; a rank that owns only padding reads the batch's last row,
+    at weight 0, where dram_tpu's slice would be empty)."""
+    (lo, hi), padded = local_batch_rows(world, rank_, batch)
+    lo_eff, hi_eff = min(lo, batch), min(hi, batch)
+    lo_load = min(lo_eff, batch - 1)
+    return (((lo, hi), padded, hi_eff - lo_eff),
+            (lo_load, max(hi_eff, lo_load + 1)))
+
+
+class _NoWriter:
+    """The summary writer of a rank that writes nothing."""
+
+    def add_scalars(self, *args, **kwargs):
+        pass
+
+    add_scalar = add_histogram = add_scalars
 
 
 class JobRunner:
@@ -48,6 +78,8 @@ class JobRunner:
         self.settings = settings if isinstance(settings, Settings) \
             else Settings(settings)
         self.device = require_cuda(device)
+        self.group = data_group()
+        self.writer = is_writer(self.group)
         s = self.settings
         log_cfg = getattr(s, "LOGGING", None)
         for fn in get_value_recursively(log_cfg or {}, "filename"):
@@ -68,8 +100,10 @@ class JobRunner:
         self.epoch_n = 0
         self.current_iteration = 0
         self.optimizer = self.scheduler = None
-        with open(self.exp_path + "/settings.txt", "wt", newline="") as fp:
-            fp.write(str(s))
+        if self.writer:
+            with open(self.exp_path + "/settings.txt", "wt",
+                      newline="") as fp:
+                fp.write(str(s))
 
     def init(self):
         """The model of settings.MODEL in eval mode on the device, its
@@ -89,23 +123,27 @@ class JobRunner:
         """After init: the optimizer, scheduler (its lr written into the
         optimizer), loss, TrainStep, train wire and SummaryWriter."""
         s = self.settings
-        for name, off in (("DCN_MESH_SIZE", None),
-                          ("PER_PROCESS_LOADING", None)):
-            if getattr(s, name, off) not in (off, False):
-                raise NotImplementedError(
-                    f"{name} (multi-device training) is not ported (ROADMAP "
-                    "Queue 1 item 5)")
+        world = world_size(self.group)
+        check_dcn_size(getattr(s, "DCN_MESH_SIZE", None), world)
         mode = getattr(s, "DP_BATCH_MODE", "pad")
-        if mode != "pad":
-            raise NotImplementedError(
-                f"DP_BATCH_MODE={mode!r}: one device runs the reference "
-                "global batch ('pad'); data parallelism is ROADMAP Queue 1 "
-                "item 5")
+        if mode not in ("pad", "scale"):
+            raise ValueError(f"DP_BATCH_MODE must be 'pad' or 'scale', "
+                             f"got {mode!r}")
         self.train_wire = str(getattr(s, "TRAIN_WIRE", "f32"))
         if self.train_wire not in ("f32", "u16"):
             raise ValueError(f"TRAIN_WIRE must be 'f32' or 'u16', "
                              f"got {self.train_wire!r}")
-        self.loader_batch_size = int(getattr(s, "TRAIN_BATCH_SIZE", 1))
+        b = int(getattr(s, "TRAIN_BATCH_SIZE", 1))
+        self.loader_batch_size = b * world if mode == "scale" else b
+        self._local_rows = self._loader_row_range = None
+        if world > 1 and bool(getattr(s, "PER_PROCESS_LOADING", True)):
+            self._local_rows, self._loader_row_range = rank_rows(
+                world, rank(self.group), self.loader_batch_size)
+        if world > 1:
+            self.logger.info(
+                f"data parallel over {world} ranks (batch mode {mode}, "
+                f"global batch {self.loader_batch_size}, loader rows "
+                f"{self._loader_row_range or 'all'})")
 
         self.optimizer = build_optimizer(self.model, s.OPTIMIZER)
         sched_cfg = dict(getattr(s, "SCHEDULER", {
@@ -121,12 +159,14 @@ class JobRunner:
             **loss_cfg)
         self.train_step = TrainStep(self.model, self.loss_func,
                                     self.optimizer, s.LOSS_FACTORS,
-                                    int(getattr(s, "RANDOM_SEED", 33)))
+                                    int(getattr(s, "RANDOM_SEED", 33)),
+                                    self.group)
         if getattr(s, "USE_GRAD_SCALER", False):
             self.logger.info("USE_GRAD_SCALER requested: bf16 keeps the f32 "
                              "exponent range, no loss scaling; ignored")
         self.summary_writer = SummaryWriter(
-            log_dir=os.path.join(self.exp_path, "summary"))
+            log_dir=os.path.join(self.exp_path, "summary")) \
+            if self.writer else _NoWriter()
 
     def print_model_parameters(self, iteration):
         """Per-parameter histogram and mean / std scalars, under the flax
@@ -166,7 +206,10 @@ class JobRunner:
         return state
 
     def save_model(self, **kwargs):
+        """`{epoch}.ckpt` under exp_path (rank 0 writes it)."""
         path = os.path.join(self.exp_path, f"{self.epoch_n}.ckpt")
+        if not self.writer:
+            return path
         save_checkpoint(path, self.update_model_state(**kwargs))
         self.logger.info(f"saved model into {path}.")
         return path

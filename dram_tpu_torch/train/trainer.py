@@ -18,8 +18,23 @@ both from the step's jax.random key: equal distributions, other
 draws).
 `train_steps` builds model, initializer or weights, optimizer and loss
 from a settings module (dram_tpu_torch/configs) and runs a few steps; the
-epoch loop is train/chunk_train.py. Not ported: the multi-device mesh
-(ROADMAP Queue 1 item 5).
+epoch loop is train/chunk_train.py.
+
+Data parallelism (dram_tpu's shard_map step, :483-578): with a process
+`group` every rank takes its rows of the padded global batch and their
+weights (core/mesh.pad_batch: wrap-around rows of weight 0); the model's
+norms and fused stacks carry the group (models/blocks.set_process_group),
+so the BatchNorm statistics are the global batch's; the losses sum over
+the ranks (core/ops.gsum), so every rank holds the global objective and
+its gradient is the world size times its rows' share; after the backward
+the gradients are averaged over the ranks once, in one all_reduce over
+one flat buffer, which recovers the global gradient exactly (dram_tpu's
+single pmean). Initial parameters and buffers come from rank 0.
+DistributedDataParallel is not used: its reducer expects one forward per
+backward and buckets the parameters it saw, where the equivariance losses
+run the model twice a step and TrainStep gives a parameter the loss does
+not reach a zero gradient; the explicit mean is the closer match to
+dram_tpu's.
 """
 
 from __future__ import annotations
@@ -32,7 +47,9 @@ import torch
 
 from .. import require_cuda, weights
 from ..configs import get_callable_by_name
+from ..core.mesh import average_gradients, replicate
 from ..losses.interval_reg import DEFAULT_CTSS_FREQUENCY
+from ..models.blocks import set_process_group
 from ..models.dc3d_at import DC3DATGeneric
 from ..models.unet3d import DC3D
 
@@ -272,13 +289,19 @@ class TrainStep:
     """One optimizer step of `model` on one batch: forward through the
     loss (which calls the model via `model_fn`), backward, optimizer
     step. The model's train-mode forward updates the BatchNorm running
-    statistics."""
+    statistics. With a process `group` the step is the data-parallel one
+    (see the module's docstring): the model's norms get the group and
+    rank 0's parameters and buffers."""
 
-    def __init__(self, model, loss_func, optimizer, loss_factors, seed=33):
+    def __init__(self, model, loss_func, optimizer, loss_factors, seed=33,
+                 group=None):
         self.model = model
         self.loss_func = loss_func
         self.optimizer = optimizer
         self.factors = [float(f) for f in loss_factors]
+        self.group = group
+        set_process_group(model, group)
+        replicate(model, group)
         device = next(model.parameters()).device
         # dropout masks (on the model's device) and the loss's transform
         # decisions (host) draw from these, step after step
@@ -290,7 +313,8 @@ class TrainStep:
         """Tensors on the model's device: images (B, D, H, W, 1) f32 or the
         u16 wire with its `span`, lobes and lesions (B, D, H, W, 1),
         ctss (B,) ints, freq (6,) the CTSS frequency map, weights (B,)
-        (ones when None). Returns {"losses": (n_losses,) f32, "loss":
+        (ones when None); under data parallelism this rank's rows of the
+        padded global batch and their weights. Returns {"losses": (n_losses,) f32, "loss":
         total, "ms": {"forward", "backward", "optimizer"}, "peak_mib"}.
         With timed=False nothing waits for the device ("ms" is None):
         the epoch loop reads the loss a step later."""
@@ -314,7 +338,7 @@ class TrainStep:
 
         losses = self.loss_func(model_fn, images, lobes, lesions, ctss,
                                 ctss_frequency=freq, rng=self.transform_gen,
-                                sample_weight=weights)
+                                sample_weight=weights, group=self.group)
         # extra factors are legal (the reference ships 4 for the 2-term
         # IntRegRefineLoss); fewer would silently drop a loss term
         if len(losses) > len(self.factors):
@@ -331,6 +355,7 @@ class TrainStep:
         for p in self.model.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        average_gradients(self.model.parameters(), self.group)
         clock.mark()
         self.optimizer.step()
         clock.mark()
@@ -390,14 +415,14 @@ def build_model(settings, dtype):
 
 
 def build_train_step(settings, device="cuda", weights_path=None,
-                     backbone_only=False):
+                     backbone_only=False, group=None):
     """TrainStep for `settings` on `device`: the model from MODEL with
     COMPUTE_DTYPE activations, its parameters from INITIALIZER (a
     torch.Generator seeded with RANDOM_SEED) or, with `weights_path`, the
     trained flagship's tree (DC3DATGeneric: the whole tree, or with
     `backbone_only` its backbone over INITIALIZER's tap heads and PCM;
     DC3D: its backbone); OPTIMIZER and LOSS_FUNC from the port's
-    registry."""
+    registry; a process `group` makes it the data-parallel step."""
     device = require_cuda(device)
     dtype = torch.bfloat16 \
         if getattr(settings, "COMPUTE_DTYPE", "float32") == "bfloat16" \
@@ -421,27 +446,32 @@ def build_train_step(settings, device="cuda", weights_path=None,
     return TrainStep(model, loss_cls(**loss_cfg),
                      build_optimizer(model, settings.OPTIMIZER),
                      settings.LOSS_FACTORS,
-                     int(getattr(settings, "RANDOM_SEED", 33)))
+                     int(getattr(settings, "RANDOM_SEED", 33)), group)
 
 
 def batch_tensors(batch, device, wire="f32"):
     """A collated batch (or one packed by pack_train_batch) -> the
     TrainStep arguments on `device`; the CTSS frequency map comes from
-    the batch's "ctss_frequency" when it has one."""
+    the batch's "ctss_frequency" when it has one, the sample weights from
+    its "weights" (ones when it has none)."""
     freq = batch.get("ctss_frequency", DEFAULT_CTSS_FREQUENCY)
+    sample_weights = batch.get("weights")
     if not batch.get("_packed"):
         batch = pack_train_batch(batch, wire)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    return {"images": t(batch["images"]), "lobes": t(batch["lobes"]),
-            "lesions": t(batch["lesions"]), "ctss": t(batch["ctss"]),
-            "freq": t(np.asarray(freq, np.float32)),
-            "span": t(batch["span"])}
+    out = {"images": t(batch["images"]), "lobes": t(batch["lobes"]),
+           "lesions": t(batch["lesions"]), "ctss": t(batch["ctss"]),
+           "freq": t(np.asarray(freq, np.float32)),
+           "span": t(batch["span"])}
+    if sample_weights is not None:
+        out["weights"] = t(np.asarray(sample_weights, np.float32))
+    return out
 
 
 def train_steps(settings, n_steps, batches, device="cuda", weights_path=None,
-                on_step=None, backbone_only=False):
+                on_step=None, backbone_only=False, group=None):
     """Build a TrainStep from `settings` (build_train_step) and take
     `n_steps` steps over `batches` (collated or packed, cycled). The
     image wire is u16 on the card and f32 on the CPU unless
@@ -451,8 +481,11 @@ def train_steps(settings, n_steps, batches, device="cuda", weights_path=None,
     "peak_mib": per-step peak device memory, "step": the TrainStep}.
     `backbone_only` as in build_train_step. A loss with an epoch-static
     transform (the equivariance losses) is reseeded before each step as
-    the epoch loop reseeds it in epoch 0."""
-    step = build_train_step(settings, device, weights_path, backbone_only)
+    the epoch loop reseeds it in epoch 0. With a process `group` the
+    batches are this rank's rows (with their "weights") and the steps
+    are data parallel."""
+    step = build_train_step(settings, device, weights_path, backbone_only,
+                            group)
     dev = next(step.model.parameters()).device
     wire = str(getattr(settings, "TRAIN_WIRE",
                        "u16" if dev.type == "cuda" else "f32"))

@@ -192,9 +192,26 @@ def test_loader_batches_equal(dbs, workers, wire):
 
 
 def test_loader_row_range_raises(dbs):
-    ours, _ = _chunk_sets(dbs["port"][0])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        pipeline.DataLoader(ours, range(4), 2, row_range=(0, 1))
+    """DataLoader(row_range) was unported (it raised); now ported: each
+    index batch is cut to rows [lo, hi) as dram_tpu's loader cuts it, the
+    batches the full batches' rows lo..hi-1, bit for bit."""
+    ours, ref = _chunk_sets(dbs["port"][0])
+    ours.transforms = _transforms(T)
+    ref.transforms = _transforms(JT)
+    got = {}
+    for name, ds, mod in (("port", ours, pipeline), ("jax", ref, jpipeline)):
+        for rows in (None, (1, 3), (2, 4)):
+            loader = mod.DataLoader(ds, range(8), 4, num_workers=0,
+                                    row_range=rows)
+            got[name, rows] = list(loader)
+            assert len(loader) == 2
+    for rows in ((1, 3), (2, 4)):
+        for whole, part, jpart in zip(got["port", None], got["port", rows],
+                                      got["jax", rows]):
+            np.testing.assert_array_equal(
+                part["#image"], whole["#image"][rows[0]:rows[1]])
+            np.testing.assert_array_equal(part["#image"], jpart["#image"])
+            assert part["meta"]["uid"] == jpart["meta"]["uid"]
 
 
 def _aug_sample(seed=3):

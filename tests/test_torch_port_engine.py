@@ -399,13 +399,18 @@ def test_truncated_scan_fails_alone(world, tmp_path, caplog):
                for m in caplog.messages)
 
 
-@pytest.mark.parametrize("setting,value,match", [
-    ("SHARD_SCANS", 2, "Queue 1 item 5")])
-def test_unported_options_raise(world, tmp_path, setting, value, match):
+@pytest.mark.parametrize("setting,value,devices", [
+    pytest.param("SHARD_SCANS", 2, 1, id="SHARD_SCANS-2-Queue 1 item 5")])
+def test_unported_options_raise(world, tmp_path, setting, value, devices):
+    """SHARD_SCANS was unported (it raised NotImplementedError); now
+    ported, it is taken and clamped to the engine's device list as
+    dram_tpu clamps it to the local devices: one CPU device, serial
+    (tests/test_torch_port_dist_train.py runs two scans in flight)."""
     settings = with_settings(Settings(world["sfile"]), **{setting: value})
-    with pytest.raises(NotImplementedError, match=match):
-        LesionSegTest(settings_module=settings,
-                      output_path=str(tmp_path), device="cpu")
+    eng = LesionSegTest(settings_module=settings,
+                        output_path=str(tmp_path), device="cpu")
+    assert len(eng.devices) == devices
+    assert eng._shard_count() == min(value, devices)
 
 
 def test_unknown_fast_wire_raises(world, tmp_path):

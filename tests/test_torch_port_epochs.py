@@ -349,8 +349,20 @@ def test_variant_trains_and_resumes(db, tmp_path):
     {"DCN_MESH_SIZE": 2}, {"DP_BATCH_MODE": "scale"},
     {"PER_PROCESS_LOADING": True}, {"TRAIN_WIRE": "bf16"}])
 def test_unported_options_raise(db, tmp_path, extra):
+    """Options the loop refuses raise; the multi-device options, ported,
+    raise only where dram_tpu does: a DCN size that does not divide the
+    world (one process here), and a DP_BATCH_MODE other than "pad" and
+    "scale"; on one process "scale" keeps the batch and PER_PROCESS_LOADING
+    loads it whole (tests/test_torch_port_dist_train.py runs them on 2
+    ranks)."""
     smp = _settings_file(tmp_path / "bad.py", db, str(tmp_path / "out"),
                          **extra)
+    if "DP_BATCH_MODE" in extra or "PER_PROCESS_LOADING" in extra:
+        runner = LesionSegChunkTrain(Settings(smp), device="cpu")
+        assert runner.loader_batch_size == 2
+        assert runner._loader_row_range is None
+        smp = _settings_file(tmp_path / "bad2.py", db,
+                             str(tmp_path / "out2"), DP_BATCH_MODE="bogus")
     with pytest.raises((NotImplementedError, ValueError)):
         LesionSegChunkTrain(Settings(smp), device="cpu")
 

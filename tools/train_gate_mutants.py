@@ -3,7 +3,8 @@
 deliberately broken copies of them, on one NVIDIA GPU.
 
     python3 tools/train_gate_mutants.py [--config st_dram_ref_att]
-                                        [--unfused | --golden | --generic]
+                                        [--unfused | --golden | --generic
+                                         | --variant-b | --dp]
 
 For each variant the script copies dram_tpu_torch/ and chip_smoke.py
 into a temporary directory, breaks one line of a CUDA source there (the
@@ -88,6 +89,19 @@ phases):
   activations, slope by slope;
 - dw64: as above, the weight-gradient kernel skips every 64th K box.
 
+With --dp (chip_smoke's train dp and train dp pad phases: two gloo ranks
+on the card against the one-process step) each variant reads both
+phases' gate, with broken lines of the port's data-parallel Python:
+
+- sound: the tree as it is;
+- stats_local: the bottleneck stack's second statistics (Co = 512) are
+  not summed across the ranks (each rank normalises with its own);
+- grad_sum: the gradients are summed across the ranks, not averaged
+  (Adam is almost blind to the uniform factor 2: only the gradients
+  show it);
+- pad_weight1: mesh.pad_batch gives the padded row weight 1 (the
+  reference keeps its own weight 0).
+
 `--variants a,b` reads only the named variants.
 """
 
@@ -160,6 +174,18 @@ GENERIC_VARIANTS = {
                       "  const int K = st.k - 1;  // the forward's offsets"),
 }
 VARIANT_B_VARIANTS = {"sound": None, "dw64": DW64}
+DP_VARIANTS = {
+    "sound": None,
+    "stats_local": ("kernels/conv_stack.py",
+                    "        bm1, bv1 = bn_batch_stats(st1, n, group)",
+                    "        bm1, bv1 = bn_batch_stats(\n"
+                    "            st1, n, None if w1.shape[0] == 512 else "
+                    "group)"),
+    "grad_sum": ("core/mesh.py", "    flat /= dist.get_world_size(group)",
+                 "    flat /= 1"),
+    "pad_weight1": ("core/mesh.py", "    weights[b:] = 0.0",
+                    "    weights[b:] = 1.0"),
+}
 LIMIT_S = 300
 
 
@@ -404,6 +430,31 @@ def read_variant_b(sound):
               f"the other gradients {rl2[worst]:.3g} ({worst})", flush=True)
 
 
+def read_dp():
+    """Run in a copy's directory: chip_smoke's train dp and train dp pad
+    gates of that copy, each printed with "pass" or its failure."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    import chip_smoke as cs
+    from dram_tpu_torch.kernels import _build
+
+    if not cs.__file__.startswith(os.getcwd()):
+        raise SystemExit(f"imported {cs.__file__}, not the copy's")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.load()
+    cs.BENCH = os.path.join(ROOT, "assets", "bench_weights.ckpt.xz")
+
+    def gate(ranks, ref, initial, label):
+        try:
+            cs.compare_dp(ranks, ref, initial, label)
+            print(f"# gate {label}: pass", flush=True)
+        except SystemExit as e:
+            print(f"# gate {label}: {e}", flush=True)
+    cs.train_dp_phases({}, gate)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", default="st_dram_ref",
@@ -419,12 +470,16 @@ def main():
     ap.add_argument("--variant-b", action="store_true",
                     help="variant B's train gate of the sound and dw64 "
                     "variants, the slope readings and the float32 witness")
+    ap.add_argument("--dp", action="store_true",
+                    help="the train dp and train dp pad gates of the sound "
+                    "tree and of broken data-parallel code")
     ap.add_argument("--variants", help="comma-separated names to read "
                     "(default: all of the mode's)")
     args = ap.parse_args()
     if args.unfused and args.config != "st_dram_ref_att":
         raise SystemExit("--unfused goes with --config st_dram_ref_att")
-    variants = VARIANT_B_VARIANTS if args.variant_b \
+    variants = DP_VARIANTS if args.dp else VARIANT_B_VARIANTS \
+        if args.variant_b \
         else GENERIC_VARIANTS if args.generic else GOLDEN_VARIANTS \
         if args.golden else UNFUSED_VARIANTS \
         if args.unfused else ATT_VARIANTS \
@@ -443,7 +498,8 @@ def main():
             print(f"# variant {name}: "
                   f"{'as in the tree' if change is None else change[2]}",
                   flush=True)
-            read = ["--read-variant-b", str(int(change is None))] \
+            read = ["--read-dp"] if args.dp else \
+                ["--read-variant-b", str(int(change is None))] \
                 if args.variant_b else ["--read-generic"] if args.generic \
                 else ["--read-golden"] if args.golden \
                 else ["--read", args.config, str(int(args.unfused))]
@@ -456,7 +512,9 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--read-variant-b"]:
+    if sys.argv[1:2] == ["--read-dp"]:
+        read_dp()
+    elif sys.argv[1:2] == ["--read-variant-b"]:
         read_variant_b(sys.argv[2] == "1")
     elif sys.argv[1:2] == ["--read-generic"]:
         read_generic()

@@ -12,9 +12,11 @@ traceback and a non-zero exit:
 3. one phase per kernel (and per training mode of the conv kernel), at
    its path's largest shape: the kernel against its plain PyTorch version
    on the same inputs (error against the stated tolerance), then
-   CUDA-event times (median of 7 after warm-up) of the kernel, the plain
-   version and, where one PyTorch call computes the same function, that
-   call (timed here only; the port never calls it). The stencil
+   CUDA-event times (median of 7 after warm-up; the network-entry conv's
+   pair, a tenth of a millisecond a launch, per call over 10 back to
+   back) of the kernel, the plain version and, where one PyTorch call
+   computes the same function, that call (timed here only; the port
+   never calls it). The stencil
    attention's two backward passes also hold StencilAttentionFunction's
    gradients against torch autograd through the plain forward.
 4. pipeline: the trained flagship DC3DATGeneric (assets/bench_weights.ckpt.xz)
@@ -87,14 +89,20 @@ traceback and a non-zero exit:
    engine, the CLI and engine deploy's reference run on the C++ prep.
 12. conv sweep (after the kernel phases of 3, before 6): ptxas's report
    (registers, spills) and the dynamic shared memory of each Hopper conv
-   kernel, and the check that their SASS holds HGMMA and no HMMA; then
-   every conv launch of the flagship training step (14 forward, 13 dx,
-   14 dW; conv_shapes, read from a meta-device DC3D) in the mode the step
-   runs it in, the network-entry conv's one CT channel zero-padded to 8:
-   at batch 2 against its plain version (outputs within 2^-7 of the
-   largest, statistics within stats_tol, dW within 1e-3), launched twice
-   with bitwise-equal results; at batch 10 its time, TFLOP/s and share of
-   the bf16 bound beside cuDNN's time for the same conv.
+   kernel, and the check that the wgmma kernels' SASS holds HGMMA and no
+   HMMA; the same report for the network-entry conv's kernels
+   (csrc/conv3x3x3_c1.cu: registers, spills, shared memory, blocks per
+   SM, SASS instruction counts, HMMA present); then every conv launch of
+   the flagship training step (14 forward, 13 dx, 14 dW; conv_shapes,
+   read from a meta-device DC3D) in the mode the step runs it in, the
+   network-entry conv's forward and dW on the c1 kernels, and that conv's
+   eval (the scan's) and raw (the unfused stack's) forwards: at batch 2
+   against its plain version (outputs within 2^-7 of the largest,
+   statistics within stats_tol, dW within 1e-3), launched twice with
+   bitwise-equal results; at batch 10 (the eval forward at 5, the scan's
+   batch) its time, TFLOP/s and share of the bound beside cuDNN's time
+   for the same conv (the c1 launches and their cuDNN calls timed over
+   C1_REPEAT back to back, as the step issues them).
 13. upsample sweep (after 12): every upsample launch, forward and adjoint,
    of the scan (batch 5), the flagship step (batch 10) and the training
    golden's step (batch 2 x 48^3), each against its plain version (2^-7
@@ -362,11 +370,13 @@ def _outputs(y):
     return y if isinstance(y, tuple) else (y,)
 
 
-def check_kernel(name, kernel, plain, args, tol, library=None, work=None):
+def check_kernel(name, kernel, plain, args, tol, library=None, work=None,
+                 repeat=1):
     """Hold kernel(*args) against plain(*args); time kernel, plain and the
-    library call. Each may return a tensor or a tuple of them; `tol` (or
-    one per output) maps a plain output to the allowed max
-    |kernel - plain|. max_abs_err is the largest over the outputs."""
+    library call (each per call over `repeat` calls back to back). Each
+    may return a tensor or a tuple of them; `tol` (or one per output) maps
+    a plain output to the allowed max |kernel - plain|. max_abs_err is
+    the largest over the outputs."""
     y = _outputs(kernel(*args))
     torch.cuda.synchronize()
     yp = _outputs(plain(*args))
@@ -384,13 +394,17 @@ def check_kernel(name, kernel, plain, args, tol, library=None, work=None):
         if not err <= allowed:
             fail(f"{tag} disagrees with its plain version")
         errs.append(err)
-    ms = cuda_ms(lambda: kernel(*args))
-    plain_ms = cuda_ms(lambda: plain(*args))
-    library_ms = cuda_ms(library) if library is not None else None
+    def per_call(f):
+        return cuda_ms(lambda: [f() for _ in range(repeat)]) / repeat
+    ms = per_call(lambda: kernel(*args))
+    plain_ms = per_call(lambda: plain(*args))
+    library_ms = per_call(library) if library is not None else None
     bound_ms, bound_by = bound(*work(*y))
     print(f"# {name}: ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
           f"{library_ms if library_ms is None else round(library_ms, 4)} "
-          f"bound_ms {bound_ms:.4f} ({bound_by})", flush=True)
+          f"bound_ms {bound_ms:.4f} ({bound_by})"
+          f"{f', per call over {repeat} back to back' if repeat > 1 else ''}",
+          flush=True)
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
@@ -460,6 +474,55 @@ def kernel_phases(gen):
             lambda yp: 1e-4 * yp.abs().max().item(),
             work=lambda y: (nbytes(th, ph, g, y),
                             18 * 34.0 * th.shape[0] * 64 ** 3, F32_FLOPS))
+    return res
+
+
+C1_REPEAT = 10  # back-to-back launches a timing of the c1 kernels
+
+
+def entry_kernel_phases(gen):
+    """The network-entry conv's kernels (csrc/conv3x3x3_c1.cu) at the
+    flagship step's shape, ds_0.conv_0 on 10 x 80^3, 1 -> 32: the forward
+    in its raw + statistics mode and the weight gradient, each against
+    its plain version and beside cuDNN's call, timed over C1_REPEAT
+    launches back to back (the step issues them ahead of the card: a
+    single call's CUDA-event time would hold the wrapper's host time)."""
+    def rnd(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    res = {}
+    V = 10 * 80 ** 3
+    x = rnd(10, 80, 80, 80, 1)
+    w = rnd(32, 1, 3, 3, 3, dtype=torch.float32, scale=0.2)
+    xl = x.permute(0, 4, 1, 2, 3)
+    wl = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+    with phase("kernel conv3x3x3_c1", LIMITS["kernel"]):
+        y, st = conv_stack.conv3x3x3_c1(x, w, stats=True)
+        yp, stp = conv_stack.conv3x3x3_c1_plain(x, w, stats=True)
+        check_stats("conv3x3x3_c1", st, stp, stats_tol(yp.float()))
+        del y, yp
+        res["conv3x3x3_c1"] = check_kernel(
+            "conv3x3x3_c1",
+            lambda a: conv_stack.conv3x3x3_c1(a, w, stats=True)[0],
+            lambda a: conv_stack.conv3x3x3_c1_plain(a, w, stats=True)[0],
+            (x,), bf16_tol(2 ** -7),
+            library=lambda: F.conv3d(xl, wl, padding=1),
+            work=lambda y: (nbytes(x, y) + w.numel() * 4,
+                            2.0 * V * 27 * 32, BF16_FLOPS),
+            repeat=C1_REPEAT)
+    dy = rnd(10, 80, 80, 80, 32)
+    dyl = dy.permute(0, 4, 1, 2, 3)
+    with phase("kernel conv3x3x3_c1_dw", LIMITS["kernel"]):
+        res["conv3x3x3_c1_dw"] = check_kernel(
+            "conv3x3x3_c1_dw", conv_stack.conv3x3x3_c1_dw,
+            conv_stack.conv3x3x3_c1_dw_plain, (x, dy),
+            lambda yp: 1e-3 * yp.abs().max().item(),
+            library=lambda: torch.nn.grad.conv3d_weight(
+                xl, wl.shape, dyl, padding=1),
+            work=lambda dw: (nbytes(x, dy, dw), 2.0 * V * 27 * 32,
+                             BF16_FLOPS),
+            repeat=C1_REPEAT)
     return res
 
 
@@ -868,6 +931,55 @@ def wgmma_build_report():
                  f"{hm} HMMA instructions")
     if found != 5:
         fail(f"expected 5 Hopper conv kernels in the SASS, found {found}")
+    return sass
+
+
+# the network-entry conv's kernels (csrc/conv3x3x3_c1.cu)
+C1_KERNELS = ("conv3x3x3_c1_kernel", "conv3x3x3_c1_dw_kernel")
+C1_MODES = {"ILi0E": " raw", "ILi1E": " eval", "ILi2E": " statistics"}
+SASS_OPS = ("HMMA", "LDS", "LDSM", "LDG", "LDGSTS", "STG", "STS", "SHFL",
+            "BAR")
+
+
+def c1_build_report(sass):
+    """ptxas's lines (-Xptxas -v), dynamic shared memory, blocks per SM
+    and SASS instruction counts of the network-entry conv's kernels (the
+    forward in its raw, eval and statistics modes; the weight gradient):
+    each must hold HMMA (mma.sync on the tensor cores)."""
+    def tag(fn):
+        k = next(k for k in C1_KERNELS if k in fn)
+        return k + next((v for m, v in C1_MODES.items() if m in fn), "")
+    entry = None
+    for line in open(_build.ptxas_log_path()).read().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = tag(m.group(1)) if any(k in m.group(1)
+                                          for k in C1_KERNELS) else None
+            continue
+        if entry and ("registers" in line or "spill" in line):
+            print(f"# ptxas {entry}: {line.split(':', 1)[-1].strip()}",
+                  flush=True)
+    lib = _build.load()
+    for k, name in enumerate((" raw", " eval", " statistics", "_dw")):
+        print(f"# conv3x3x3_c1{name}: "
+              f"{lib.conv3x3x3_c1_smem(k, 32)} bytes of dynamic shared "
+              f"memory at Co = 32, {lib.conv3x3x3_c1_occupancy(k, 32)} "
+              "blocks of 256 threads per SM", flush=True)
+    found = 0
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        if not any(k in name for k in C1_KERNELS):
+            continue
+        found += 1
+        ops = [o.split(".")[0] for o in re.findall(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", fn)]
+        counts = {o: ops.count(o) for o in SASS_OPS}
+        print(f"# sass {tag(name)}: {len(ops)} instructions, " + ", ".join(
+            f"{n} {o}" for o, n in counts.items()), flush=True)
+        if counts["HMMA"] == 0:
+            fail(f"{tag(name)}: no HMMA in the SASS")
+    if found != 4:
+        fail(f"expected 4 c1 kernels in the SASS, found {found}")
 
 
 def conv_shapes(size=80):
@@ -913,15 +1025,30 @@ def flagship_conv_launches():
     return out
 
 
-def conv_sweep_phase(gen):
-    """Every conv launch of the flagship training step: checked at batch
-    2, timed at batch 10 beside cuDNN. Returns the per-launch records."""
-    wgmma_build_report()
+# the network-entry conv's other forwards: the scan's eval (batch 5) and
+# the unfused stack's raw conv
+ENTRY_FORWARDS = [("eval", "ds_0.conv_0", 80, (1, 0), 32, "eval"),
+                  ("raw", "ds_0.conv_0", 80, (1, 0), 32, "raw")]
+
+
+def entry_launches():
+    """The network-entry conv's launches of the sweep (the c1 kernels)."""
+    return [r for r in flagship_conv_launches()
+            if r[1] == "ds_0.conv_0"] + ENTRY_FORWARDS
+
+
+def conv_sweep_phase(gen, launches=None):
+    """Every conv launch of the flagship training step, and the entry
+    conv's eval and raw forwards (or the `launches` given): checked at
+    batch 2, timed at batch 10 (eval: 5) beside cuDNN. Returns the
+    per-launch records."""
+    c1_build_report(wgmma_build_report())
     torch.cuda.synchronize()
     records = []
-    for kind, name, e, (c1, c2), co, mode in flagship_conv_launches():
+    for kind, name, e, (c1, c2), co, mode in (
+            launches or flagship_conv_launches() + ENTRY_FORWARDS):
         recs = {}
-        for B in (2, 10):
+        for B in (2, 5 if kind == "eval" else 10):
             def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
                 return (torch.randn(*shape, generator=gen, device="cuda")
                         * scale).to(dtype)
@@ -949,6 +1076,23 @@ def conv_sweep_phase(gen):
                     x1, w, x2=x2, prologue=pro, stats=True)
                 flops = 2.0 * 27 * ci * co * B * e ** 3
                 moved = (nbytes(x1) / c1) * (ci + co) + w.numel() * 2
+            elif kind == "eval":
+                w = rnd(co, ci, 3, 3, 3, scale=(27 * ci) ** -0.5,
+                        dtype=torch.float32)
+                s = torch.rand(co, generator=gen, device="cuda") + 0.5
+                t = rnd(co, scale=0.1, dtype=torch.float32)
+                new = lambda: conv_stack.conv3x3x3(x1, w, s, t)  # noqa
+                plain = lambda: conv_stack.conv3x3x3_plain(  # noqa
+                    x1, w, s, t)
+                flops = 2.0 * 27 * ci * co * B * e ** 3
+                moved = (nbytes(x1) / c1) * (ci + co) + w.numel() * 2
+            elif kind == "raw":
+                w = rnd(co, ci, 3, 3, 3, scale=(27 * ci) ** -0.5,
+                        dtype=torch.float32)
+                new = lambda: conv3d.conv3d(x1, w)  # noqa
+                plain = lambda: conv3d.conv3d_plain(x1, w)  # noqa
+                flops = 2.0 * 27 * ci * co * B * e ** 3
+                moved = (nbytes(x1) / c1) * (ci + co) + w.numel() * 2
             else:
                 dy = rnd(B, e, e, e, co)
                 new = lambda: conv_stack.conv3x3x3_dw(  # noqa
@@ -960,7 +1104,7 @@ def conv_sweep_phase(gen):
             tag = (f"{kind} {name} {B}x{e}^3 "
                    f"{c1 if not c2 else f'[{c1}|{c2}]'} -> "
                    f"{co if kind != 'dx' else (co[0] if not co[1] else f'[{co[0]}|{co[1]}]')}"
-                   f" {mode}{' (padded to 8)' if ci % 8 else ''}")
+                   f" {mode}{' (c1 kernel)' if ci == 1 else ''}")
             if B == 2:
                 a, b = _outputs(new()), _outputs(plain())
                 a2 = _outputs(new())
@@ -991,10 +1135,16 @@ def conv_sweep_phase(gen):
                       "equal", flush=True)
                 del a, b, a2
                 continue
-            ms = cuda_ms(new, reps=5)
+            # the c1 launches (~0.1 ms) and their cuDNN calls back to back:
+            # a single call's time would hold the wrapper's host time
+            n = C1_REPEAT if ci == 1 else 1
+
+            def per_call(f):
+                return cuda_ms(lambda: [f() for _ in range(n)], reps=5) / n
+            ms = per_call(new)
             xl = (x1 if x2 is None else torch.cat([x1, x2], -1)).permute(
                 0, 4, 1, 2, 3)
-            if kind == "fwd":
+            if kind in ("fwd", "eval", "raw"):
                 wl = w.to(torch.bfloat16).contiguous(
                     memory_format=torch.channels_last_3d)
                 lib = lambda: F.conv3d(xl, wl, padding=1)  # noqa
@@ -1008,18 +1158,26 @@ def conv_sweep_phase(gen):
                 dyl = dy.permute(0, 4, 1, 2, 3)
                 lib = lambda: torch.nn.grad.conv3d_weight(  # noqa
                     xl, (co, ci, 3, 3, 3), dyl, padding=1)
-            lib_ms = cuda_ms(lib, reps=5)
-            bound_ms, _ = bound(moved, flops, BF16_FLOPS)
+            lib_ms = per_call(lib)
+            # the entry conv's plain version too (PERF.md's table)
+            plain_ms = per_call(plain) if ci == 1 else None
+            bound_ms, bound_by = bound(moved, flops, BF16_FLOPS)
             recs = {"kind": kind, "name": name, "edge": e, "parts": [c1, c2],
                     "out": co, "mode": mode,
                     "ms": ms, "tflops": flops / ms / 1e9,
-                    "bound_ms": bound_ms, "share_of_bound": bound_ms / ms,
-                    "cudnn_ms": lib_ms}
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "share_of_bound": bound_ms / ms, "cudnn_ms": lib_ms,
+                    "plain_ms": plain_ms, "back_to_back": n}
             print(f"# sweep {tag}: ms {ms:.4f} ({flops / ms / 1e9:.1f} "
-                  f"TFLOP/s, {100 * bound_ms / ms:.1f}% of the bf16 bound "
-                  f"{bound_ms:.4f} ms); cuDNN {lib_ms:.4f} ms"
-                  f"{' (no prologue)' if pro is not None else ''}",
+                  f"TFLOP/s, {100 * bound_ms / ms:.1f}% of the bound "
+                  f"{bound_ms:.4f} ms, {bound_by}); cuDNN {lib_ms:.4f} ms"
+                  f"{' (no prologue)' if pro is not None else ''}"
+                  f"{f'; plain {plain_ms:.4f} ms' if plain_ms else ''}"
+                  f"{f'; per call over {n} back to back' if n > 1 else ''}",
                   flush=True)
+            if ci == 1 and not ms < lib_ms:
+                fail(f"sweep {tag}: the c1 kernel ({ms:.4f} ms) is not "
+                     f"faster than cuDNN ({lib_ms:.4f} ms)")
             del xl
         records.append(recs)
         torch.cuda.empty_cache()
@@ -1251,7 +1409,9 @@ WRAPPERS = {"conv3x3x3": (conv_stack, "conv3x3x3"),
             "stencil_attention_scal_generic": (
                 window_attention, "stencil_attention_scal_generic"),
             "stencil_attention_bwd_generic": (
-                window_attention, "stencil_attention_bwd_generic")}
+                window_attention, "stencil_attention_bwd_generic"),
+            "conv3x3x3_c1": (conv_stack, "conv3x3x3_c1"),
+            "conv3x3x3_c1_dw": (conv_stack, "conv3x3x3_c1_dw")}
 META = {
     "conv3x3x3": ("dram_tpu_torch/kernels/csrc/conv3x3x3.cu",
                   "dram_tpu/core/pallas/fused_stack.py:305"),
@@ -1297,6 +1457,11 @@ META = {
     "stencil_attention_bwd_generic": (
         "dram_tpu_torch/kernels/csrc/stencil_attention_generic.cu",
         "dram_tpu/core/pallas/window_attention.py:366"),
+    # the network-entry conv (Ci = 1) of rows 1 / 10 and 5 / 11
+    "conv3x3x3_c1": ("dram_tpu_torch/kernels/csrc/conv3x3x3_c1.cu",
+                     "dram_tpu/core/pallas/fused_stack.py:305"),
+    "conv3x3x3_c1_dw": ("dram_tpu_torch/kernels/csrc/conv3x3x3_c1.cu",
+                        "dram_tpu/core/pallas/fused_stack.py:388"),
 }
 # the __global__ functions behind each wrapper (csrc/*.cu)
 GLOBALS = {"conv3x3x3": "conv3x3x3_wgmma_kernel",
@@ -1312,27 +1477,32 @@ GLOBALS = {"conv3x3x3": "conv3x3x3_wgmma_kernel",
            "stencil_attention_scal_generic":
                "stencil_attention_scal_generic_kernel",
            "stencil_attention_bwd_generic":
-               "stencil_attention_bwd_generic_kernel"}
+               "stencil_attention_bwd_generic_kernel",
+           "conv3x3x3_c1": "conv3x3x3_c1_kernel, colsum_kernel",
+           "conv3x3x3_c1_dw": "conv3x3x3_c1_dw_kernel, colsum_kernel"}
 for _k in ("conv3x3x3_train", "conv3x3x3_dx", "conv3d", "conv3d_dx"):
     GLOBALS[_k] = GLOBALS["conv3x3x3"]
 GLOBALS["conv3d_dw"] = GLOBALS["conv3x3x3_dw"]
 # the kernels each path launches: the chunk-wire inference, the
 # st_dram_ref training step and the flagship st_dram_ref_att training step,
 # each with the fused conv stack; the flagship's inference and training
-# step with the unfused one
+# step with the unfused one. Every DC3D forward runs its entry conv on
+# conv3x3x3_c1, every DC3D backward that conv's dW on conv3x3x3_c1_dw.
 TRAIN_KERNELS = ("conv3x3x3_train", "conv3x3x3_dx", "conv3x3x3_dw",
-                 "maxpool2", "maxpool2_bwd", "upsample2x", "upsample2x_bwd")
+                 "conv3x3x3_c1", "conv3x3x3_c1_dw", "maxpool2",
+                 "maxpool2_bwd", "upsample2x", "upsample2x_bwd")
 ATTENTION_TRAIN = ("stencil_attention", "stencil_attention_scal",
                    "stencil_attention_bwd")
-PATHS = {"pipeline": ("conv3x3x3", "maxpool2", "upsample2x",
-                      "stencil_attention"),
+PATHS = {"pipeline": ("conv3x3x3", "conv3x3x3_c1", "maxpool2",
+                      "upsample2x", "stencil_attention"),
          "train": TRAIN_KERNELS,
          "train_att": TRAIN_KERNELS + ATTENTION_TRAIN,
-         "pipeline_unfused": ("conv3d", "maxpool2", "upsample2x",
-                              "stencil_attention"),
-         "engine": ("conv3x3x3", "maxpool2", "upsample2x",
+         "pipeline_unfused": ("conv3d", "conv3x3x3_c1", "maxpool2",
+                              "upsample2x", "stencil_attention"),
+         "engine": ("conv3x3x3", "conv3x3x3_c1", "maxpool2", "upsample2x",
                     "stencil_attention"),
-         "train_unfused": ("conv3d", "conv3d_dx", "conv3d_dw", "maxpool2",
+         "train_unfused": ("conv3d", "conv3d_dx", "conv3d_dw",
+                           "conv3x3x3_c1", "conv3x3x3_c1_dw", "maxpool2",
                            "maxpool2_bwd_first", "upsample2x",
                            "upsample2x_bwd") + ATTENTION_TRAIN}
 # the training golden's step (golden.train_golden_batch, 2 x 48^3) with
@@ -1355,10 +1525,11 @@ PATHS["train_epochs"] = tuple(dict.fromkeys(PATHS["train_att"]
 # validation and resume)
 GENERIC_TRAIN = ("stencil_attention_generic", "stencil_attention_scal_generic",
                  "stencil_attention_bwd_generic")
-UNFUSED_TRAIN = ("conv3d", "conv3d_dx", "conv3d_dw", "maxpool2",
-                 "maxpool2_bwd_first", "upsample2x", "upsample2x_bwd")
-PATHS["pipeline_generic"] = ("conv3x3x3", "maxpool2", "upsample2x",
-                             "stencil_attention_generic")
+UNFUSED_TRAIN = ("conv3d", "conv3d_dx", "conv3d_dw", "conv3x3x3_c1",
+                 "conv3x3x3_c1_dw", "maxpool2", "maxpool2_bwd_first",
+                 "upsample2x", "upsample2x_bwd")
+PATHS["pipeline_generic"] = ("conv3x3x3", "conv3x3x3_c1", "maxpool2",
+                             "upsample2x", "stencil_attention_generic")
 PATHS["train_generic"] = TRAIN_KERNELS + GENERIC_TRAIN
 PATHS["train_geo"] = TRAIN_KERNELS
 PATHS["train_variant_b"] = UNFUSED_TRAIN + ATTENTION_TRAIN
@@ -1370,10 +1541,10 @@ PATHS["variant_b_resume"] = PATHS["train_variant_b"]
 # sharded PCM its plain path (z0 != 0, as dram_tpu dispatches)
 PATHS["train_dp"] = PATHS["train_att"]
 PATHS["engine_shard"] = PATHS["engine"]
-PATHS["overlap_tile"] = ("conv3x3x3", "maxpool2")
+PATHS["overlap_tile"] = ("conv3x3x3", "conv3x3x3_c1", "maxpool2")
 PATHS["pcm_sharded"] = ()
-FORWARD_LAUNCHES = {"conv3x3x3": 14, "maxpool2": 3, "upsample2x": 3,
-                    "stencil_attention": 1}
+FORWARD_LAUNCHES = {"conv3x3x3": 13, "conv3x3x3_c1": 1, "maxpool2": 3,
+                    "upsample2x": 3, "stencil_attention": 1}
 
 
 @contextlib.contextmanager
@@ -2031,7 +2202,8 @@ LOBE_COLUMNS = ("lul [0-5]", "lll [0-5]", "rul [0-5]", "rll [0-5]",
                 "rml [0-5]")
 # the forward kernels of a lobe's batch-1 forward on the host-stitch
 # path, each against its plain version at the kernel phases' tolerances
-FORWARD_TOL = {"conv3x3x3": bf16_tol(2 ** -7), "maxpool2": lambda yp: 0.0,
+FORWARD_TOL = {"conv3x3x3": bf16_tol(2 ** -7),
+               "conv3x3x3_c1": bf16_tol(2 ** -7), "maxpool2": lambda yp: 0.0,
                "upsample2x": bf16_tol(2 ** -7),
                "stencil_attention": lambda yp: 1e-4 * yp.abs().max().item()}
 
@@ -2116,9 +2288,8 @@ def engine_phase(root, params, batch_stats, card):
         rows = eng.run()
     torch.cuda.synchronize()
     n = len(ENGINE_GOOD)
-    counts = path_counts("engine", {"conv3x3x3": 14 * n, "maxpool2": 3 * n,
-                                    "upsample2x": 3 * n,
-                                    "stencil_attention": n})
+    counts = path_counts("engine", {k: n * c for k, c in
+                                    FORWARD_LAUNCHES.items()})
     print(f"# engine launches over {n} scans: {counts}", flush=True)
     print_scan_times(eng, "fast", card)
     for row in rows:
@@ -2322,9 +2493,10 @@ def engine_stitch_phase(root, ckpt, deploy, card):
                      f"kernels ({launches})")
             for k, args, kw in calls:
                 mod, attr = WRAPPERS[k]
-                with torch.no_grad():
-                    y = getattr(mod, attr)(*args, **kw)
-                    yp = getattr(mod, attr + "_plain")(*args, **kw)
+                with torch.no_grad():  # conv3x3x3_c1 returns (y, None)
+                    y = _outputs(getattr(mod, attr)(*args, **kw))[0]
+                    yp = _outputs(getattr(mod, attr + "_plain")(*args,
+                                                                **kw))[0]
                 err = (y.float() - yp.float()).abs().max().item()
                 allowed = FORWARD_TOL[k](yp.float())
                 if not err <= allowed:
@@ -3374,8 +3546,8 @@ def main():
         zero_counts()
         run_scan(upipe, prepc, False, "unfused kernels, cold")
         uwarm = run_scan(upipe, prepc, False, "unfused kernels, warm")
-        launches["pipeline_unfused"] = path_counts("pipeline_unfused",
-                                                   {"conv3d": 2 * 14})
+        launches["pipeline_unfused"] = path_counts(
+            "pipeline_unfused", {"conv3d": 2 * 13, "conv3x3x3_c1": 2})
         print(f"# launches over the two unfused scans: "
               f"{launches['pipeline_unfused']}", flush=True)
         compare_masks(uwarm, warm, "unfused vs fused kernels on the card")
@@ -3423,6 +3595,8 @@ def main():
     torch.cuda.empty_cache()
     res.update(unfused_kernel_phases(gen))
     torch.cuda.empty_cache()
+    res.update(entry_kernel_phases(gen))
+    torch.cuda.empty_cache()
     with phase("conv sweep", LIMITS["conv_sweep"]):
         conv_sweep_phase(gen)
     torch.cuda.empty_cache()
@@ -3458,7 +3632,8 @@ def main():
 
     uk_run, up_run = train_phases(
         unfused, "train_unfused", bench, flagship_buffers, launches,
-        expect={"conv3d": 14, "conv3d_dx": 13, "conv3d_dw": 14,
+        expect={"conv3d": 13, "conv3d_dx": 13, "conv3d_dw": 13,
+                "conv3x3x3_c1": 1, "conv3x3x3_c1_dw": 1,
                 "maxpool2_bwd_first": 3})
     check_head_grads(uk_run, "unfused kernels")
     check_head_grads(up_run, "unfused plain versions")

@@ -51,6 +51,12 @@ SIGNATURES = {
     # queries, not launchers: the wgmma kernels' dynamic shared memory
     "conv3x3x3_wgmma_smem": [_I, _I],
     "conv3x3x3_dw_wgmma_smem": [],
+    "conv3x3x3_c1_bf16": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _PI64,
+                          _P],
+    "conv3x3x3_c1_dw_bf16": [_P, _P, _I, _I, _I, _I, _I, _PI64, _P, _P],
+    # queries: the c1 kernels' dynamic shared memory and blocks per SM
+    "conv3x3x3_c1_smem": [_I, _I],
+    "conv3x3x3_c1_occupancy": [_I, _I],
     "maxpool2_bf16": [_P, _P, _I64, _I64, _I64, _I64, _I64, _P],
     "maxpool2_bwd_bf16": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _P],
     "upsample2x_bf16": [_P, _P, _I64, _I64, _I64, _I64, _I64, _PI64, _P],

@@ -9,7 +9,10 @@ dtype). The JAX package reaches it through `PallasConv3d`
 (dram_tpu/models/blocks.py:100) on the unfused stack. No new CUDA source:
 the raw conv is csrc/conv3x3x3.cu's training kernel with no prologue and no
 statistics, and dW is csrc/conv3x3x3_dw.cu with no prologue (the launchers
-of kernels/conv_stack.py). Each wrapper here keeps its own launch count.
+of kernels/conv_stack.py); the network-entry conv (one input channel,
+conv_stack.c1_takes) runs csrc/conv3x3x3_c1.cu's raw forward and weight
+gradient and counts under conv_stack.conv3x3x3_c1 / conv3x3x3_c1_dw. Each
+wrapper here keeps its own launch count.
 
 The input may come in two parts that act as their channel concat (the
 decoder's [upsample, skip]); the JAX package materializes that concat
@@ -32,10 +35,12 @@ def conv3d_plain(x1, w, x2=None):
 def conv3d(x1, w, x2=None):
     """Kernel wrapper of conv3d_plain: CUDA bf16 tensors launch
     csrc/conv3x3x3.cu's training kernel with no prologue and no
-    statistics (other dtypes raise); CPU tensors take the plain
-    version."""
+    statistics (other dtypes raise), or the raw conv3x3x3_c1 for one
+    input channel; CPU tensors take the plain version."""
     if not x1.is_cuda:
         return conv3d_plain(x1, w, x2)
+    if conv_stack.c1_takes(x1, x2, None):
+        return conv_stack.conv3x3x3_c1(x1, w)[0]
     y, _ = conv_stack.launch_train(x1, w, x2, None, False, "conv3d")
     conv3d.launches += 1
     return y
@@ -72,10 +77,13 @@ def conv3d_dw_plain(x1, dy, x2=None):
 
 def conv3d_dw(x1, dy, x2=None):
     """Kernel wrapper of conv3d_dw_plain: CUDA tensors launch
-    csrc/conv3x3x3_dw.cu with no prologue and colsum_f32; CPU tensors
-    take the plain version."""
+    csrc/conv3x3x3_dw.cu with no prologue and colsum_f32, or
+    conv3x3x3_c1_dw for one input channel; CPU tensors take the plain
+    version."""
     if not x1.is_cuda:
         return conv3d_dw_plain(x1, dy, x2)
+    if conv_stack.c1_takes(x1, x2, None):
+        return conv_stack.conv3x3x3_c1_dw(x1, dy)
     dw = conv_stack.launch_dw(x1, dy, x2, None, "conv3d_dw")
     conv3d_dw.launches += 1
     return dw

@@ -9,17 +9,21 @@ Port of dram_tpu/core/pallas/fused_stack.py: conv_cm (kernel _cbr_kernel)
 in its eval, training and dx uses, conv_dw_cm (kernel _dw_kernel_pro), and
 the custom VJP of fused_cbr2 (_fused_cbr2_vjp :531-689) as
 ConvStackFunction. CUDA sources: csrc/conv3x3x3.cu, csrc/conv3x3x3_dw.cu
-(and csrc/conv_wgmma.cuh). The launchers
+(and csrc/conv_wgmma.cuh), csrc/conv3x3x3_c1.cu. The launchers
 launch_train, launch_dx and launch_dw are shared with the unfused stack's
 raw conv (kernels/conv3d.py); each wrapper counts its own launches.
 
-On a CUDA tensor every conv runs the Hopper kernels (wgmma fed by TMA).
-TMA strides are multiples of 16 bytes, so an input part whose channel
-count is not a multiple of 8 (the network-entry conv's one CT channel) is
-zero-padded to one, with zero weights, as dram_tpu's entry stack pads its
-input to 8 channels (models/blocks.py:235-242). The launch geometry
-(conv_plan, dw_plan) is decided here in plain Python; the C launchers run
-the plan they are handed and refuse one that does not cover the output.
+On a CUDA tensor every conv runs a Hopper kernel. The network-entry conv
+(one input part of one channel, the CT chunk, and no prologue: c1_takes)
+runs csrc/conv3x3x3_c1.cu, forward and weight gradient, through
+conv3x3x3_c1 / conv3x3x3_c1_dw and their counters: dram_tpu pads that
+input to 8 channels for its kernel (models/blocks.py:235-242), which this
+card need not do. Every other conv runs the wgmma kernels fed by TMA, whose
+strides are multiples of 16 bytes: an input part whose channel count is
+not a multiple of 8 is zero-padded to one, with zero weights (pad8; no
+shipped conv has one). The launch geometry (conv_plan, dw_plan, c1_plan,
+c1_dw_plan) is decided here in plain Python; the C launchers run the plan
+they are handed and refuse one that does not cover the output.
 """
 
 from __future__ import annotations
@@ -208,6 +212,161 @@ def _args(vals):
     return (ctypes.c_int64 * len(vals))(*vals)
 
 
+# --- the network-entry conv: csrc/conv3x3x3_c1.cu ---------------------------
+
+C1_BOX = (16, 8, 8)     # the forward's output tile (x, y, z)
+C1_DW_BOX = (16, 8, 2)  # the weight gradient's K box
+C1_CO = 32              # output channels of a forward chunk, of a dW block
+C1_MAX_CO = 256
+# blocks in flight: 2 of 256 threads on each of the 132 SMs (the kernels'
+# __launch_bounds__: 128 registers, where 3 blocks spilled the forward's
+# and ran it ~10% slower); the forward's blocks take equal runs of tiles,
+# the weight gradient's splits equal runs of K boxes
+C1_BLOCKS = 132 * 2
+
+
+def c1_takes(x1, x2, prologue):
+    """Whether a conv launch runs csrc/conv3x3x3_c1.cu: one input part of
+    one channel and no prologue (the network-entry conv on the CT chunk)."""
+    return x2 is None and prologue is None and x1.shape[-1] == 1
+
+
+def _refuse_c1(x1, x2, prologue, name):
+    if c1_takes(x1, x2, prologue):
+        raise ValueError(f"{name}: a one-channel input runs "
+                         "csrc/conv3x3x3_c1.cu (conv3x3x3_c1 / "
+                         "conv3x3x3_c1_dw), not the wgmma kernels")
+
+
+@functools.lru_cache(maxsize=None)
+def c1_plan(B, D, H, W):
+    """Geometry of one launch of csrc/conv3x3x3_c1.cu's forward: output
+    tiles of C1_BOX voxels (x fastest, then y, z, batch element), block i
+    computing tiles [i per, (i + 1) per) and writing one statistics row;
+    `args` is the vector the launcher runs."""
+    tiles = tuple(_cdiv(n, b) for n, b in zip((W, H, D), C1_BOX))
+    ntiles = B * math.prod(tiles)
+    per = _cdiv(ntiles, C1_BLOCKS)
+    blocks = _cdiv(ntiles, per)
+    return {"box": C1_BOX, "tiles": tiles, "ntiles": ntiles, "per": per,
+            "blocks": blocks, "stat_rows": blocks,
+            "args": (*tiles, ntiles, per, blocks)}
+
+
+@functools.lru_cache(maxsize=None)
+def c1_dw_plan(B, D, H, W, Co):
+    """Geometry of one launch of csrc/conv3x3x3_c1.cu's weight gradient:
+    K boxes of C1_DW_BOX voxels over the batch (numbered as c1_plan's
+    tiles), split into runs of `kboxes` boxes, one block per (32-channel
+    output chunk, split) writing the split's partial row; `args` is the
+    vector the launcher runs."""
+    tiles = tuple(_cdiv(n, b) for n, b in zip((W, H, D), C1_DW_BOX))
+    nboxes = B * math.prod(tiles)
+    n_co = _cdiv(Co, C1_CO)
+    kboxes = _cdiv(nboxes, max(1, C1_BLOCKS // n_co))
+    nsplit = _cdiv(nboxes, kboxes)
+    return {"box": C1_DW_BOX, "tiles": tiles, "nboxes": nboxes,
+            "kboxes": kboxes, "nsplit": nsplit, "grid": (n_co, nsplit),
+            "args": (*tiles, nboxes, kboxes, nsplit)}
+
+
+def _check_c1(x, Co, name):
+    _build.check_operand(x, torch.bfloat16, f"{name} x")
+    if x.shape[-1] != 1:
+        raise ValueError(f"{name}: x {tuple(x.shape)} has "
+                         f"{x.shape[-1]} channels, the kernel takes 1")
+    if Co < 2 or Co % 2:
+        raise ValueError(f"{name}: {Co} output channels; the kernel "
+                         "takes an even count")
+
+
+def _check_c1_mode(epilogue, stats):
+    if epilogue is not None and stats:
+        raise ValueError("conv3x3x3_c1: the eval epilogue and the "
+                         "statistics are separate modes")
+
+
+def conv3x3x3_c1_plain(x, w, epilogue=None, stats=False):
+    """The network-entry conv in f32 (Ci = 1): relu(conv * s + t) with
+    epilogue = (s, t) (conv3x3x3_plain), else the raw output and, with
+    `stats`, its (2, Co) [sum, sum of squares] before rounding
+    (conv3x3x3_train_plain). Returns (y in x's dtype, stats or None)."""
+    _check_c1_mode(epilogue, stats)
+    if epilogue is not None:
+        return conv3x3x3_plain(x, w, *epilogue), None
+    return conv3x3x3_train_plain(x, w, stats=stats)
+
+
+def conv3x3x3_c1(x, w, epilogue=None, stats=False):
+    """Kernel wrapper of conv3x3x3_c1_plain: CUDA tensors launch
+    csrc/conv3x3x3_c1.cu's forward on x (B, D, H, W, 1) bf16 and the f32
+    w (Co, 1, 3, 3, 3), which the kernel rounds to bf16 (Co even and <=
+    256); the statistics reduce their per-block rows in colsum_f32. CPU
+    tensors take the plain version."""
+    if not x.is_cuda:
+        return conv3x3x3_c1_plain(x, w, epilogue, stats)
+    _check_c1_mode(epilogue, stats)
+    name = "conv3x3x3_c1"
+    B, D, H, W, _ = x.shape
+    Co = w.shape[0]
+    _check_c1(x, Co, name)
+    if tuple(w.shape[1:]) != (1, 3, 3, 3) or Co > C1_MAX_CO:
+        raise ValueError(f"{name}: weight {tuple(w.shape)}; the kernel "
+                         f"takes (Co <= {C1_MAX_CO}, 1, 3, 3, 3)")
+    es = et = None
+    if epilogue is not None:
+        es, et = (_f32_vec(v, x.device) for v in epilogue)
+    wk = _f32_vec(w, x.device)
+    plan = c1_plan(B, D, H, W)
+    nrows = plan["stat_rows"]
+    y = torch.empty((B, D, H, W, Co), dtype=torch.bfloat16, device=x.device)
+    part = torch.empty((nrows, 2 * Co), dtype=torch.float32,
+                       device=x.device) if stats else None
+    _build.launch("conv3x3x3_c1_bf16", x.data_ptr(), wk.data_ptr(), _ptr(es),
+                  _ptr(et), y.data_ptr(), Co, _ptr(part), B, D, H, W,
+                  _args(plan["args"]))
+    conv3x3x3_c1.launches += 1
+    return y, _colsum(part, nrows, 2 * Co).view(2, Co) if stats else None
+
+
+conv3x3x3_c1.launches = 0
+
+
+def conv3x3x3_c1_dw_plain(x, dy):
+    """f32 weight gradient (Co, 1, 3, 3, 3) of the network-entry conv
+    (conv3x3x3_dw_plain at Ci = 1)."""
+    return conv3x3x3_dw_plain(x, dy)
+
+
+def conv3x3x3_c1_dw(x, dy):
+    """Kernel wrapper of conv3x3x3_c1_dw_plain: CUDA tensors launch
+    csrc/conv3x3x3_c1.cu's weight gradient (split K, f32 partial rows) and
+    colsum_f32 (adds the rows in a fixed order); CPU tensors take the
+    plain version."""
+    if not x.is_cuda:
+        return conv3x3x3_c1_dw_plain(x, dy)
+    name = "conv3x3x3_c1_dw"
+    B, D, H, W, _ = x.shape
+    Co = dy.shape[-1]
+    _check_c1(x, Co, name)
+    _build.check_operand(dy, torch.bfloat16, f"{name} dy")
+    if tuple(dy.shape[:4]) != (B, D, H, W):
+        raise ValueError(f"{name}: dy {tuple(dy.shape)} does not fit "
+                         f"x {tuple(x.shape)}")
+    plan = c1_dw_plan(B, D, H, W, Co)
+    nsplit = plan["nsplit"]
+    part = torch.empty((nsplit, 27 * Co), dtype=torch.float32,
+                       device=x.device)
+    _build.launch("conv3x3x3_c1_dw_bf16", x.data_ptr(), dy.data_ptr(), Co,
+                  B, D, H, W, _args(plan["args"]), part.data_ptr())
+    dw = _colsum(part, nsplit, 27 * Co) if nsplit > 1 else part[0]
+    conv3x3x3_c1_dw.launches += 1
+    return dw.view(27, Co).t().reshape(Co, 1, 3, 3, 3).contiguous()
+
+
+conv3x3x3_c1_dw.launches = 0
+
+
 def _ptr(t):
     return t.data_ptr() if t is not None else None
 
@@ -266,7 +425,8 @@ def conv3x3x3_plain(x1, w, scale, shift, x2=None):
 def conv3x3x3(x1, w, scale, shift, x2=None):
     """Kernel wrapper of conv3x3x3_plain: CUDA tensors launch
     csrc/conv3x3x3.cu (bf16 activations; w is cast to bf16 in the
-    kernel's layout, pack_weight); CPU tensors take the plain version.
+    kernel's layout, pack_weight), or conv3x3x3_c1 for a launch that
+    c1_takes; CPU tensors take the plain version.
 
     The eval conv has no gradient on CUDA: with grad enabled and an
     operand that requires grad it raises rather than return a result
@@ -281,6 +441,8 @@ def conv3x3x3(x1, w, scale, shift, x2=None):
         raise RuntimeError(
             "conv3x3x3: the CUDA eval conv has no gradient; call it under "
             "torch.no_grad() or put the stack in train mode")
+    if c1_takes(x1, x2, None):
+        return conv3x3x3_c1(x1, w, epilogue=(scale, shift))[0]
     B, D, H, W, _ = x1.shape
     _check_parts("conv3x3x3", x1, x2)
     y = torch.empty((B, D, H, W, w.shape[0]), dtype=torch.bfloat16,
@@ -314,9 +476,12 @@ def conv3x3x3_train_plain(x1, w, x2=None, prologue=None, stats=False):
 def conv3x3x3_train(x1, w, x2=None, prologue=None, stats=False):
     """Kernel wrapper of conv3x3x3_train_plain: CUDA tensors launch
     csrc/conv3x3x3.cu in its training modes (the statistics reduce their
-    per-block rows in colsum_f32); CPU tensors take the plain version."""
+    per-block rows in colsum_f32), or conv3x3x3_c1 for a launch that
+    c1_takes; CPU tensors take the plain version."""
     if not x1.is_cuda:
         return conv3x3x3_train_plain(x1, w, x2, prologue, stats)
+    if c1_takes(x1, x2, prologue):
+        return conv3x3x3_c1(x1, w, stats=stats)
     y, st = launch_train(x1, w, x2, prologue, stats, "conv3x3x3_train")
     conv3x3x3_train.launches += 1
     return y, st
@@ -324,7 +489,9 @@ def conv3x3x3_train(x1, w, x2=None, prologue=None, stats=False):
 
 def launch_train(x1, w, x2, prologue, stats, name):
     """One conv launch on CUDA tensors in the training modes (raw output,
-    optional prologue and statistics); the callers count it."""
+    optional prologue and statistics); the callers count it. A launch
+    that c1_takes raises: it runs csrc/conv3x3x3_c1.cu."""
+    _refuse_c1(x1, x2, prologue, name)
     B, D, H, W, _ = x1.shape
     _check_parts(name, x1, x2)
     y = torch.empty((B, D, H, W, w.shape[0]), dtype=torch.bfloat16,
@@ -411,10 +578,12 @@ def conv3x3x3_dw_plain(x1, dy, x2=None, prologue=None):
 def conv3x3x3_dw(x1, dy, x2=None, prologue=None):
     """Kernel wrapper of conv3x3x3_dw_plain: CUDA tensors launch
     csrc/conv3x3x3_dw.cu (split K, f32 partial tiles) and colsum_f32
-    (adds the partials in a fixed order); CPU tensors take the plain
-    version."""
+    (adds the partials in a fixed order), or conv3x3x3_c1_dw for a
+    launch that c1_takes; CPU tensors take the plain version."""
     if not x1.is_cuda:
         return conv3x3x3_dw_plain(x1, dy, x2, prologue)
+    if c1_takes(x1, x2, prologue):
+        return conv3x3x3_c1_dw(x1, dy)
     dw = launch_dw(x1, dy, x2, prologue, "conv3x3x3_dw")
     conv3x3x3_dw.launches += 1
     return dw
@@ -424,7 +593,9 @@ def launch_dw(x1, dy, x2, prologue, name):
     """One launch of csrc/conv3x3x3_dw.cu's kernel (and its colsum_f32
     passes) on CUDA tensors, channel parts zero-padded to multiples of 8
     (pad8) and their rows dropped: the f32 (Co, Ci, 3, 3, 3) weight
-    gradient; the callers count it."""
+    gradient; the callers count it. A launch that c1_takes raises: it
+    runs csrc/conv3x3x3_c1.cu."""
+    _refuse_c1(x1, x2, prologue, name)
     B, D, H, W, _ = x1.shape
     C1, C2 = _check_parts(name, x1, x2)
     _build.check_operand(dy, torch.bfloat16, f"{name} dy")

@@ -149,8 +149,14 @@ class JobRunner:
         sched_cfg = dict(getattr(s, "SCHEDULER", {
             "method": "torch.optim.lr_scheduler.ExponentialLR",
             "gamma": 0.9}))
-        if get_callable_by_name(sched_cfg.pop("method")) is not ExponentialLR:
-            raise NotImplementedError("only SCHEDULER ExponentialLR is ported")
+        method = sched_cfg.pop("method")
+        if get_callable_by_name(method) is not ExponentialLR:
+            raise NotImplementedError(
+                f"SCHEDULER method {method!r}: dram_tpu checks that the name "
+                "resolves, then decays the learning rate exponentially "
+                "whatever it names (dram_tpu/train/trainer.py:361-365); the "
+                "port refuses a scheduler other than ExponentialLR rather "
+                "than run another schedule without a word")
         self.scheduler = ExponentialLR(self.optimizer.param_groups[0]["lr"],
                                        **sched_cfg)
         self.scheduler.apply(self.optimizer)

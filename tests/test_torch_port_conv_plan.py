@@ -365,22 +365,18 @@ def conv_shapes():
     return _chip_smoke().conv_shapes()
 
 
-def padded(c):
-    """Channels after pad8."""
-    return c + (-c % 8)
-
-
 def _flagship_steps():
-    """(kind, B, edge, (C1, C2), Co) of the flagship training step's conv
-    launches at batch 10 as the kernels see them (parts after pad8): 14
-    forward, 13 dx (none for the CT input), 14 dW."""
+    """(kind, B, edge, (C1, C2), Co) of the flagship training step's
+    launches of the wgmma kernels at batch 10: 13 forward, 13 dx and 13
+    dW. The network-entry conv's forward and dW run csrc/conv3x3x3_c1.cu
+    (conv_stack.c1_takes), and its CT input takes no dx."""
     out = []
     for name, e, (c1, c2), co in conv_shapes():
-        parts = (padded(c1), padded(c2))
-        out.append(("fwd", 10, e, parts, co))
-        if name != "ds_0.conv_0":
-            out.append(("dx", 10, e, (co, 0), (c1, c2)))
-        out.append(("dw", 10, e, parts, padded(co)))
+        if name == "ds_0.conv_0":
+            continue
+        out.append(("fwd", 10, e, (c1, c2), co))
+        out.append(("dx", 10, e, (co, 0), (c1, c2)))
+        out.append(("dw", 10, e, (c1, c2), co))
     return out
 
 
@@ -444,36 +440,47 @@ def test_conv_tiles_cover_each_output_voxel_once():
 
 
 def test_flagship_routing():
-    """Every flagship conv launch runs the Hopper kernels: after pad8
-    every input part is a multiple of 8 channels and every output part
-    even. Only the network-entry conv (Ci = 1: its forward and dW) is
-    padded, and the padding changes neither the conv nor, after
+    """Every flagship conv launch runs a Hopper kernel on its channels as
+    they are. The network-entry conv (Ci = 1) is the only conv whose input
+    is not a multiple of 8 channels, and c1_takes it: its forward and dW
+    run csrc/conv3x3x3_c1.cu (tests/test_torch_port_entry_conv.py). Every
+    wgmma launch's input parts are multiples of 8, so pad8 returns them as
+    they are, and every output part is even. pad8 stays for other widths:
+    on (12, 5) -> 6 the padding changes neither the conv nor, after
     unpad_dw, its weight gradient."""
-    padded_convs = [(n, e, parts) for n, e, parts, _ in conv_shapes()
-                    if any(c % 8 for c in parts)]
-    assert padded_convs == [("ds_0.conv_0", 80, (1, 0))]
+    odd = [(n, e, parts) for n, e, parts, _ in conv_shapes()
+           if any(c % 8 for c in parts)]
+    assert odd == [("ds_0.conv_0", 80, (1, 0))]
+    for name, e, (c1, c2), co in conv_shapes():
+        x1 = torch.empty(1, 1, 1, 1, c1, device="meta")
+        x2 = torch.empty(1, 1, 1, 1, c2, device="meta") if c2 else None
+        assert cs.c1_takes(x1, x2, None) == (name == "ds_0.conv_0")
+        # a conv_1's prologue (training) never takes the c1 kernels
+        assert not cs.c1_takes(x1, x2, (x1, x1))
     for kind, B, e, ins, outs in _flagship_steps():
         assert all(c % 8 == 0 for c in ins), (kind, e, ins)
+        t = torch.empty(1, sum(ins), device="meta")
+        assert cs.pad8(t, ins) is t
         if kind == "dx":  # the split output's parts
             assert all(c % 2 == 0 for c in outs), (kind, e, outs)
     rng = np.random.default_rng(12)
-    for C1, C2, Co in ((1, 0, 32), (12, 5, 6)):
-        x1, x2 = _rand(rng, 1, 4, 6, 10, C1), _rand(rng, 1, 4, 6, 10, C2)
-        dy = _rand(rng, 1, 4, 6, 10, Co)
-        w = _rand(rng, Co, C1 + C2, 3, 3, 3)
-        x = torch.cat([x1, x2], -1)
-        xp = torch.cat([cs.pad8(x1), cs.pad8(x2)], -1)
-        wp = cs.pad8(w, (C1, C2), 1)
-        assert xp.shape[-1] % 8 == 0 and wp.shape[1] == xp.shape[-1]
-        want = F.conv3d(x.permute(0, 4, 1, 2, 3), w, padding=1)
-        got = F.conv3d(xp.permute(0, 4, 1, 2, 3), wp, padding=1)
-        torch.testing.assert_close(got, want, rtol=1e-5,
-                                   atol=1e-5 * want.abs().max().item())
-        want = _conv_weight_grad(x, dy)
-        got = cs.unpad_dw(_conv_weight_grad(xp, cs.pad8(dy)), C1, C2, Co)
-        assert got.shape == want.shape
-        torch.testing.assert_close(got, want, rtol=1e-5,
-                                   atol=1e-5 * want.abs().max().item())
+    C1, C2, Co = 12, 5, 6
+    x1, x2 = _rand(rng, 1, 4, 6, 10, C1), _rand(rng, 1, 4, 6, 10, C2)
+    dy = _rand(rng, 1, 4, 6, 10, Co)
+    w = _rand(rng, Co, C1 + C2, 3, 3, 3)
+    x = torch.cat([x1, x2], -1)
+    xp = torch.cat([cs.pad8(x1), cs.pad8(x2)], -1)
+    wp = cs.pad8(w, (C1, C2), 1)
+    assert xp.shape[-1] % 8 == 0 and wp.shape[1] == xp.shape[-1]
+    want = F.conv3d(x.permute(0, 4, 1, 2, 3), w, padding=1)
+    got = F.conv3d(xp.permute(0, 4, 1, 2, 3), wp, padding=1)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
+    want = _conv_weight_grad(x, dy)
+    got = cs.unpad_dw(_conv_weight_grad(xp, cs.pad8(dy)), C1, C2, Co)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
 
 
 def test_conv_plan_tiles_and_launch_vector():

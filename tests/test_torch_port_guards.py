@@ -112,8 +112,8 @@ def test_chip_smoke_imports_without_jax_or_dram_tpu():
 
 def test_cuda_sources_include_plain_cuda_headers_only():
     srcs = [f for f in os.listdir(CSRC) if f.endswith((".cu", ".cuh"))]
-    assert sorted(srcs) == ["conv3x3x3.cu", "conv3x3x3_dw.cu",
-                            "conv_wgmma.cuh",
+    assert sorted(srcs) == ["conv3x3x3.cu", "conv3x3x3_c1.cu",
+                            "conv3x3x3_dw.cu", "conv_wgmma.cuh",
                             "maxpool2.cu", "stencil_attention.cu",
                             "stencil_attention_generic.cu", "upsample2x.cu"]
     for f in srcs:

@@ -36,6 +36,7 @@ from dram_tpu_torch.train.trainer import (batch_tensors,  # noqa: E402
 
 # the port's kernels (csrc/*.cu) by their __global__ names
 PORT_KERNELS = ("conv3x3x3_wgmma_kernel", "conv3x3x3_dw_wgmma_kernel",
+                "conv3x3x3_c1_kernel", "conv3x3x3_c1_dw_kernel",
                 "colsum_kernel",
                 "maxpool2_kernel", "maxpool2_bwd_kernel",
                 "upsample2x_kernel", "upsample2x_bwd_kernel",

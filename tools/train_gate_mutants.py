@@ -4,7 +4,7 @@ deliberately broken copies of them, on one NVIDIA GPU.
 
     python3 tools/train_gate_mutants.py [--config st_dram_ref_att]
                                         [--unfused | --golden | --generic
-                                         | --variant-b | --dp]
+                                         | --variant-b | --dp | --entry]
 
 For each variant the script copies dram_tpu_torch/ and chip_smoke.py
 into a temporary directory, breaks one line of a CUDA source there (the
@@ -88,6 +88,21 @@ phases):
   plain step, both in bf16, each against the plain step with float32
   activations, slope by slope;
 - dw64: as above, the weight-gradient kernel skips every 64th K box.
+
+With --entry (the network-entry conv's kernels, csrc/conv3x3x3_c1.cu)
+each variant reads two gates: chip_smoke's conv sweep of that conv's
+launches (the forward's raw + statistics, eval and raw modes and the
+weight gradient at batch 2 against their plain versions, repeated
+bitwise) and the flagship's train gate (fused stack). Variants:
+
+- sound: the tree as it is;
+- kd2: the forward drops the kd = 2 tap plane (its 9 taps read zero);
+- st_row: the forward's statistics lose one block's row (block 1 writes
+  zeros);
+- dw_run: the weight gradient drops one split's run of K boxes (split 1
+  adds nothing);
+- edge: the forward's halo zero fill starts one column early at the
+  volume's x edge (x = W - 1 reads zero).
 
 With --dp (chip_smoke's train dp and train dp pad phases: two gloo ranks
 on the card against the one-process step) each variant reads both
@@ -174,6 +189,23 @@ GENERIC_VARIANTS = {
                       "  const int K = st.k - 1;  // the forward's offsets"),
 }
 VARIANT_B_VARIANTS = {"sound": None, "dw64": DW64}
+C1 = "conv3x3x3_c1.cu"
+ENTRY_VARIANTS = {
+    "sound": None,
+    "kd2": (C1, "        if (k < 27) kvalid |= 1u << (ks * 4 + c * 2 + e);",
+            "        if (k < 18) kvalid |= 1u << (ks * 4 + c * 2 + e);"),
+    "st_row": (C1, "      p.partials[static_cast<int64_t>(blockIdx.x) * 2 * "
+               "p.Co + i] = tot;",
+               "      p.partials[static_cast<int64_t>(blockIdx.x) * 2 * "
+               "p.Co + i] = blockIdx.x == 1 ? 0.f : tot;"),
+    "dw_run": (C1, "  const int nb = min(p.kboxes, p.nboxes - kb0);",
+               "  const int nb = split == 1 ? 0 : min(p.kboxes, p.nboxes - "
+               "kb0);"),
+    "edge": (C1, "    if (e < C1_HALO && gx >= 0 && gx < p.W && gy >= 0 && "
+             "gy < p.H &&",
+             "    if (e < C1_HALO && gx >= 0 && gx < p.W - 1 && gy >= 0 && "
+             "gy < p.H &&"),
+}
 DP_VARIANTS = {
     "sound": None,
     "stats_local": ("kernels/conv_stack.py",
@@ -301,6 +333,54 @@ def read_golden():
     torch.cuda.empty_cache()
     gate("train golden gate", lambda: cs.train_golden_phase(
         bench, {}, (("train_golden", settings),)))
+
+
+def read_entry():
+    """Run in a copy's directory: chip_smoke's sweep of the network-entry
+    conv's launches and the flagship's train gate of that copy, each
+    printed with "pass" or its failure."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    import chip_smoke as cs
+    from dram_tpu_torch import weights
+    from dram_tpu_torch.configs import st_dram_ref_att as settings
+    from dram_tpu_torch.data.synth import train_batch
+    from dram_tpu_torch.kernels import _build
+    from dram_tpu_torch.models import DC3DATGeneric
+
+    if not cs.__file__.startswith(os.getcwd()):
+        raise SystemExit(f"imported {cs.__file__}, not the copy's")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.load()
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+
+    def gate(name, fn):
+        try:
+            fn()
+            print(f"# {name}: pass", flush=True)
+        except SystemExit as e:
+            print(f"# {name}: {e}", flush=True)
+    gate("kernel check entry conv sweep",
+         lambda: cs.conv_sweep_phase(gen, cs.entry_launches()))
+    torch.cuda.empty_cache()
+    bench = os.path.join(ROOT, "assets", "bench_weights.ckpt.xz")
+    batch = train_batch(cs.SEED, batch=settings.TRAIN_BATCH_SIZE,
+                        size=settings.RESAMPLE_SIZE[0],
+                        window=(settings.WINDOWING_MIN,
+                                settings.WINDOWING_MAX))
+    initial = dict(weights.load_into(
+        DC3DATGeneric(), *weights.load_bench_weights(bench)).named_buffers())
+
+    def train_gate():
+        k_run = cs.run_train(settings, "att kernels", batch, bench)
+        torch.cuda.empty_cache()
+        with cs.plain_versions():
+            p_run = cs.run_train(settings, "att plain versions", batch,
+                                 bench)
+        cs.compare_train(k_run, p_run, initial, "train att")
+    gate("train gate", train_gate)
 
 
 def read_generic():
@@ -470,6 +550,9 @@ def main():
     ap.add_argument("--variant-b", action="store_true",
                     help="variant B's train gate of the sound and dw64 "
                     "variants, the slope readings and the float32 witness")
+    ap.add_argument("--entry", action="store_true",
+                    help="the network-entry conv's sweep checks and the "
+                    "flagship's train gate of the c1 kernels' variants")
     ap.add_argument("--dp", action="store_true",
                     help="the train dp and train dp pad gates of the sound "
                     "tree and of broken data-parallel code")
@@ -478,7 +561,8 @@ def main():
     args = ap.parse_args()
     if args.unfused and args.config != "st_dram_ref_att":
         raise SystemExit("--unfused goes with --config st_dram_ref_att")
-    variants = DP_VARIANTS if args.dp else VARIANT_B_VARIANTS \
+    variants = ENTRY_VARIANTS if args.entry else DP_VARIANTS if args.dp \
+        else VARIANT_B_VARIANTS \
         if args.variant_b \
         else GENERIC_VARIANTS if args.generic else GOLDEN_VARIANTS \
         if args.golden else UNFUSED_VARIANTS \
@@ -498,7 +582,8 @@ def main():
             print(f"# variant {name}: "
                   f"{'as in the tree' if change is None else change[2]}",
                   flush=True)
-            read = ["--read-dp"] if args.dp else \
+            read = ["--read-entry"] if args.entry else \
+                ["--read-dp"] if args.dp else \
                 ["--read-variant-b", str(int(change is None))] \
                 if args.variant_b else ["--read-generic"] if args.generic \
                 else ["--read-golden"] if args.golden \
@@ -512,7 +597,9 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--read-dp"]:
+    if sys.argv[1:2] == ["--read-entry"]:
+        read_entry()
+    elif sys.argv[1:2] == ["--read-dp"]:
         read_dp()
     elif sys.argv[1:2] == ["--read-variant-b"]:
         read_variant_b(sys.argv[2] == "1")

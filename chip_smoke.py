@@ -162,14 +162,19 @@ traceback and a non-zero exit:
    attention forward, not the plane ring) and with the plain versions,
    pred Dice >= 0.99.
 20. generic attention (after 14): ptxas's report of the generic
-   stencil-attention kernels (csrc/stencil_attention_generic.cu), then
-   each pass at every case of GENERIC_CASES (k = 3 connectivity 1 and 3,
-   k = 5 connectivity 2, k = 7 connectivity 1, all with a self loop;
-   widths (16, 4), (33, 1) and (8, 8); 64^3 on a 1/8 grid; batch 2, and
-   variant A's batch 10): against its plain version (1e-4 of the
-   largest), launched twice bitwise equal, timed per launch over 10 back
-   to back beside its bound; at batch 2 StencilAttentionFunction's
-   gradients against autograd through the plain forward (1e-4).
+   stencil-attention kernels (csrc/stencil_attention_generic.cu, the
+   plane-ring forward and the statistics pass;
+   csrc/stencil_attention_generic_bwd.cu, the gradient pass's two plane
+   rings), per instantiation, then each pass at every case of
+   GENERIC_CASES (k = 3 connectivity 1 and 3, k = 5 connectivity 2, k = 7
+   connectivity 1, all with a self loop; widths (16, 4), (33, 1), (8, 8)
+   and (64, 64); 64^3 and a ragged 37 x 45 x 53 at halo 3, on a 1/8 grid;
+   batch 2, and variant A's batch 10): each plane-ring launch's plan
+   (tile, sets, ring, threads, shared memory, blocks an SM), then each
+   pass against its plain version (1e-4 of the largest), launched twice
+   bitwise equal, timed per launch over 10 back to back beside its
+   bound; at batch 2 StencilAttentionFunction's gradients against
+   autograd through the plain forward (1e-4).
 21. train generic / train geo / train variant b (after 10's unfused
    training, each with its plain phase and the train gate, the same
    start and generator seeds on both sides): variant A's 3 steps from
@@ -180,7 +185,9 @@ traceback and a non-zero exit:
    fan_out, AdamW (weight decay 1e-4) with an attention_module group at
    lr 1e-3 and IntRegAffRefineLoss with the rescale pool 64 / 80 / 96
    (reseeded a step as the epoch loop does), 3 steps from INITIALIZER on
-   the unfused stack's kernels, its peak MiB.
+   the unfused stack's kernels, its peak MiB; variant B's gate at its own
+   limits (TRAIN_LIMITS: its bf16 steps read rounding noise above the
+   others').
 22. variant b epochs (after 18): the training CLI's main on variant B
    over the dataset of 16, one epoch (validated, 0.ckpt, the optimizer
    in dram_tpu's multi_transform layout, each group's lr decayed), then
@@ -314,6 +321,17 @@ LOSS_RTOL, GRAD_COS_MIN, GRAD_REL_L2, BN_REL_L2 = 1e-2, 0.99, 3e-2, 1e-3
 # ds_0's gradient lost or at 70% reads 1.0 or 0.373 (PERF.md, the
 # variant-B readings of tools/train_gate_mutants.py)
 SLOPE_REL = 0.25
+# variant B ('in' norms, PReLU, the unfused stack): its bf16 steps read
+# rounding noise above both limits. Equally valid accumulation orders of
+# the entry conv (tools/entry_conv_orders.py) read ds_0's slope at 0.093,
+# 0.198 and 0.291 and the worst other gradient at 0.0272 to 0.0302 (the
+# padded wgmma entry conv it replaced: 0.105 and 0.0276), where a float32
+# witness puts every bf16 step 0.3 to 0.92 off float32 on that slope and
+# ~0.107 on the worst other gradient; the slope's gradient lost, at 70%
+# and dw64 read 1.0, 0.373 and 0.183. Its limits sit between the largest
+# sound and the smallest broken reading, at their geometric means
+# (PERF.md, the variant-B gate readings)
+TRAIN_LIMITS = {"train variant b": {"slope_rel": 0.33, "grad_rel_l2": 0.074}}
 # the kernel step (bf16 activations) vs dram_tpu's float64 step (the
 # train golden): loss terms and cosine as above; the relative L2 of the
 # gradients' seeded projections per group, and of the BatchNorm batch
@@ -1293,12 +1311,17 @@ def attention_launches():
 
 def ptxas_report(kernels):
     """Print ptxas's lines (-Xptxas -v: registers, shared memory, spills)
-    of the named __global__ functions of the build."""
+    of the named __global__ functions of the build, an instantiation of a
+    template with its arguments (<1, 4, 1>)."""
     entry = None
     for line in open(_build.ptxas_log_path()).read().splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             entry = next((k for k in kernels if k in m.group(1)), None)
+            t = re.search(r"I((?:L[ib]\d+E)+)E", m.group(1))
+            if entry and t:
+                entry += "<" + ", ".join(
+                    re.findall(r"L[ib](\d+)E", t.group(1))) + ">"
             continue
         if entry and ("registers" in line or "spill" in line):
             print(f"# ptxas {entry}: {line.split(':', 1)[-1].strip()}",
@@ -1455,7 +1478,7 @@ META = {
         "dram_tpu_torch/kernels/csrc/stencil_attention_generic.cu",
         "dram_tpu/core/pallas/window_attention.py:335"),
     "stencil_attention_bwd_generic": (
-        "dram_tpu_torch/kernels/csrc/stencil_attention_generic.cu",
+        "dram_tpu_torch/kernels/csrc/stencil_attention_generic_bwd.cu",
         "dram_tpu/core/pallas/window_attention.py:366"),
     # the network-entry conv (Ci = 1) of rows 1 / 10 and 5 / 11
     "conv3x3x3_c1": ("dram_tpu_torch/kernels/csrc/conv3x3x3_c1.cu",
@@ -1477,7 +1500,8 @@ GLOBALS = {"conv3x3x3": "conv3x3x3_wgmma_kernel",
            "stencil_attention_scal_generic":
                "stencil_attention_scal_generic_kernel",
            "stencil_attention_bwd_generic":
-               "stencil_attention_bwd_generic_kernel",
+               "stencil_attention_bwd_plus_kernel, "
+               "stencil_attention_bwd_minus_kernel",
            "conv3x3x3_c1": "conv3x3x3_c1_kernel, colsum_kernel",
            "conv3x3x3_c1_dw": "conv3x3x3_c1_dw_kernel, colsum_kernel"}
 for _k in ("conv3x3x3_train", "conv3x3x3_dx", "conv3d", "conv3d_dx"):
@@ -1686,7 +1710,11 @@ def compare_train(k, p, initial, label="train"):
     """Kernel run vs plain run of the training step: step-1 loss terms,
     every parameter gradient (but those zero in exact arithmetic), and
     the BatchNorm batch statistics that step 1 folded into the running
-    ones (r1 = 0.9 r0 + 0.1 batch)."""
+    ones (r1 = 0.9 r0 + 0.1 batch); at TRAIN_LIMITS[label] where the
+    configuration has its own."""
+    lim = TRAIN_LIMITS.get(label, {})
+    slope_lim = lim.get("slope_rel", SLOPE_REL)
+    rl2_lim = lim.get("grad_rel_l2", GRAD_REL_L2)
     rel = [abs(a - b) / max(abs(b), 1e-30)
            for a, b in zip(k["losses"], p["losses"])]
     cos, rl2 = {}, {}
@@ -1703,7 +1731,7 @@ def compare_train(k, p, initial, label="train"):
                                                              1e-30)
             print(f"# {label} {n}: gradient {gk.item():.6g} (plain "
                   f"{gp.item():.6g}), relative error {slope_rel[n]:.3g} "
-                  f"(allowed {SLOPE_REL})", flush=True)
+                  f"(allowed {slope_lim})", flush=True)
         pairs = [t for t in pairs if not t[0].endswith("negative_slope")] \
             + [(f"PReLU slopes ({len(slopes)})",
                 torch.stack([gk.flatten() for _, gk, _ in slopes]),
@@ -1723,7 +1751,7 @@ def compare_train(k, p, initial, label="train"):
           f"{k['losses']} vs {p['losses']} (rel {max(rel):.3g}, allowed "
           f"{LOSS_RTOL}); gradients of {len(cos)} parameters: worst cosine "
           f"{cos[wc]:.6f} ({wc}, allowed {GRAD_COS_MIN}), worst relative "
-          f"L2 {rl2[wr]:.3g} ({wr}, allowed {GRAD_REL_L2}); BatchNorm batch "
+          f"L2 {rl2[wr]:.3g} ({wr}, allowed {rl2_lim}); BatchNorm batch "
           f"statistics after step 1: worst relative L2 {bn[wb]:.3g} ({wb}, "
           f"allowed {BN_REL_L2})", flush=True)
     heads = [n for n in cos if n.startswith(("attention_module.",
@@ -1736,8 +1764,8 @@ def compare_train(k, p, initial, label="train"):
             print(f"# {label} {group}: worst cosine {cos[gc]:.6f} ({gc}), "
                   f"worst relative L2 {rl2[gr]:.3g} ({gr})", flush=True)
     if not (max(rel) <= LOSS_RTOL and cos[wc] >= GRAD_COS_MIN
-            and rl2[wr] <= GRAD_REL_L2 and bn[wb] <= BN_REL_L2
-            and all(e <= SLOPE_REL for e in slope_rel.values())):
+            and rl2[wr] <= rl2_lim and bn[wb] <= BN_REL_L2
+            and all(e <= slope_lim for e in slope_rel.values())):
         fail(f"{label} step with the kernels disagrees with the plain run")
 
 
@@ -2772,23 +2800,47 @@ def train_resume_phase(smp, first, card):
 
 # --- the generic stencil-attention kernels and the two variants -------------
 
-# (stencil (k, connectivity, self loop), (F, G), batch) of each check of the
-# generic kernels, all at 64^3; the last is variant A's step shape, whose
-# times the kernels line reports
-GENERIC_CASES = [((3, 1, True), (16, 4), 2), ((3, 3, True), (33, 1), 2),
-                 ((5, 2, True), (16, 4), 2), ((7, 1, True), (8, 8), 2),
-                 ((5, 2, True), (16, 4), 10)]
+# (stencil (k, connectivity, self loop), (F, G), batch, grid) of each check
+# of the generic kernels: 64^3 but a ragged grid at halo 3; the last is
+# variant A's step shape, whose times the kernels line reports. F = G = 64
+# at halo 3 takes the reload ring (generic_fwd_plan), the others the whole
+# ring
+GENERIC_CASES = [((3, 1, True), (16, 4), 2, (64, 64, 64)),
+                 ((3, 3, True), (33, 1), 2, (64, 64, 64)),
+                 ((5, 2, True), (16, 4), 2, (64, 64, 64)),
+                 ((7, 1, True), (8, 8), 2, (64, 64, 64)),
+                 ((7, 1, True), (16, 4), 2, (37, 45, 53)),
+                 ((7, 1, True), (64, 64), 2, (64, 64, 64)),
+                 ((5, 2, True), (16, 4), 10, (64, 64, 64))]
 GENERIC_KERNELS = ("stencil_attention_generic_kernel",
                    "stencil_attention_scal_generic_kernel",
-                   "stencil_attention_bwd_generic_kernel")
+                   "stencil_attention_bwd_plus_kernel",
+                   "stencil_attention_bwd_minus_kernel")
+
+
+def generic_plans(B, grid, F, G, offs):
+    """(name, plan, blocks an SM holds) of each plane-ring launch of the
+    generic forward and gradient pass on these operands."""
+    wa = window_attention
+    lib = _build.load()
+    cls = {(1, 4, 1): 0, (1, 4, 4): 1, (4, 4, 4): 2}[wa.generic_class(F, G)]
+    h = wa.generic_halo(offs)
+    fwd = wa.generic_fwd_plan(B, *grid, F, G, h)
+    bwd = wa.generic_bwd_plan(B, *grid, F, G, h)
+    return [("forward", fwd, lib.stencil_attention_generic_occupancy(
+        cls, fwd["threads"], fwd["smem"]))] + [
+        (f"gradient {side}", bwd[side],
+         lib.stencil_attention_bwd_generic_occupancy(
+             int(side == "minus"), cls, bwd[side]["threads"],
+             bwd[side]["smem"])) for side in ("plus", "minus")]
 
 
 def generic_pass_work(kind, F, G, voxels, edges):
     """(bytes, flops) of one pass: each input read once and each output
     written once; per valid edge the operations the function needs, each
-    once, as stencil_attention_*_plain computes them (the kernels compute
-    the logit's dot again on each sweep and on the gradient pass's -o
-    side, which the bound does not count): the forward's logit dot 2F
+    once, as stencil_attention_*_plain computes them (the gradient pass
+    computes the logit's dot and u's dot again on its -o side, which the
+    bound does not count): the forward's logit dot 2F
     and aggregate 2G; the statistics pass's logit dot 2F and u's dot 2G;
     the gradient pass's logit dot 2F, u's dot 2G and its three
     accumulations ds phi, ds theta and a ybar (2F, 2F, 2G); a few scalar
@@ -2816,15 +2868,16 @@ def generic_attention_phase(gen):
     ptxas_report(GENERIC_KERNELS)
     rel = lambda yp: 1e-4 * yp.abs().max().item()  # noqa: E731
     res = {}
-    for stencil, (F, G), B in GENERIC_CASES:
+    for stencil, (F, G), B, grid in GENERIC_CASES:
         offs = wa.stencil_offsets(*stencil)
-        th, ph = (torch.round(torch.randn(B, 64, 64, 64, F, generator=gen,
+        th, ph = (torch.round(torch.randn(B, *grid, F, generator=gen,
                                           device="cuda") * 8) / 8
                   for _ in range(2))
-        g, yb = (torch.round(torch.randn(B, 64, 64, 64, G, generator=gen,
+        g, yb = (torch.round(torch.randn(B, *grid, G, generator=gen,
                                          device="cuda") * 8) / 8
                  for _ in range(2))
-        edges = B * int(wa.valid_masks((64, 64, 64), offs).sum())
+        edges = B * int(wa.valid_masks(grid, offs).sum())
+        voxels = B * grid[0] * grid[1] * grid[2]
         scal = wa.stencil_attention_scal_plain(th, ph, g, yb, offs)
         passes = (("fwd", "stencil_attention_generic",
                    wa.stencil_attention_plain, (th, ph, g, offs)),
@@ -2834,7 +2887,18 @@ def generic_attention_phase(gen):
                    wa.stencil_attention_bwd_plain,
                    (th, ph, g, yb, scal, offs)))
         tag = (f"k={stencil[0]} c={stencil[1]} self loop {stencil[2]} "
-               f"({len(offs)} offsets), F={F} G={G}, {B}x64^3")
+               f"({len(offs)} offsets), F={F} G={G}, {B}x"
+               + ("64^3" if grid == (64, 64, 64) else "x".join(map(str, grid))))
+        for name, p, per_sm in generic_plans(B, grid, F, G, offs):
+            print(f"# generic attention {name} plan {tag}: tile {p['run']}, "
+                  f"{p['sets']} sets, "
+                  f"{'reload' if p['reload'] else 'whole'} ring of "
+                  f"{p['nbuf']}, {p['lanes']} lanes a voxel, {p['threads']} "
+                  f"threads, {p['blocks']} blocks, {p['smem']} bytes of "
+                  f"dynamic shared memory, {per_sm} blocks an SM",
+                  flush=True)
+            if per_sm < 1:
+                fail(f"generic attention {name} {tag}: no block fits an SM")
         for kind, name, plain, args in passes:
             fn = getattr(wa, name)
             split = (lambda t: t.unbind(-1)) if kind == "scal" else _outputs
@@ -2848,7 +2912,7 @@ def generic_attention_phase(gen):
                 ms = cuda_ms(lambda: [fn(*args) for _ in range(ATT_REPEAT)]) \
                     / ATT_REPEAT
                 plain_ms = cuda_ms(lambda: plain(*args), reps=3)
-            nb, ops = generic_pass_work(kind, F, G, B * 64 ** 3, edges)
+            nb, ops = generic_pass_work(kind, F, G, voxels, edges)
             bound_ms, bound_by = bound(nb, ops, F32_FLOPS)
             print(f"# generic attention {kind} {tag}: max_abs_err "
                   + ", ".join(f"{e:.3g} (allowed {al:.3g})"

@@ -69,13 +69,16 @@ SIGNATURES = {
     "stencil_attention_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I64,
                                   _I64, _I64, _I64, _PI64, _P],
     "stencil_attention_generic_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                                      _I64, _I64, _PI32, _I64, _P],
+                                      _I64, _I64, _PI32, _I64, _PI64, _P],
     "stencil_attention_scal_generic_f32": [_P, _P, _P, _P, _P, _I64, _I64,
                                            _I64, _I64, _I64, _I64, _PI32,
                                            _I64, _P],
     "stencil_attention_bwd_generic_f32": [_P, _P, _P, _P, _P, _P, _P, _P,
                                           _I64, _I64, _I64, _I64, _I64, _I64,
-                                          _PI32, _I64, _P],
+                                          _PI32, _I64, _PI64, _P],
+    # queries: blocks per SM of the generic plane-ring kernels
+    "stencil_attention_generic_occupancy": [_I, _I, _I],
+    "stencil_attention_bwd_generic_occupancy": [_I, _I, _I, _I],
 }
 
 _lock = threading.Lock()

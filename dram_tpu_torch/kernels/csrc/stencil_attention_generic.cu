@@ -1,13 +1,15 @@
 // Stencil attention of the PCM refinement (merge type
 // 'scaled_dot_product_relu') on any stencil and any widths: the forward
-// and the two passes of its gradient, for every offset list and every F
-// (theta, phi) and G (g) that dram_tpu's fused kernel takes.
+// and the statistics pass of its gradient, for every offset list and
+// every F (theta, phi) and G (g) that dram_tpu's fused kernel takes (the
+// gradient pass: csrc/stencil_attention_generic_bwd.cu).
 //
 // Replaces: dram_tpu/core/pallas/window_attention.py:stencil_attention
-// forward (_fwd_impl -> _fwd_kernel) and its custom VJP _vjp_bwd (the
-// statistics pass _scal_kernel, the gradient pass _bwd_kernel) where the
-// PCM's stencil or widths are not the shipped 18-offset, F = G = 8 ones,
-// which csrc/stencil_attention.cu's plane-ring kernels keep.
+// forward (_fwd_impl :274 -> pallas_call :288, _fwd_kernel :53) and the
+// statistics pass of its custom VJP (_vjp_bwd :317 -> :335,
+// _scal_kernel) where the PCM's stencil or widths are not the shipped
+// 18-offset, F = G = 8 ones, which csrc/stencil_attention.cu's
+// plane-ring kernels keep.
 //
 // The arithmetic is that of csrc/stencil_attention.cu's header, over the
 // K offsets o of the stencil (any subset of [-3, 3]^3, the centre
@@ -18,38 +20,41 @@
 //   scal_i = (r, m, denom, c): r = 1/sqrt(max(deg, 1)), m = max(0,
 //     max_o s_io), denom = sum_o exp(s_io - m), c = sum_o a_io u_io with
 //     u_io = ybar_i . g_{i+o}
-//   dtheta_j = sum_o ds_o(j) phi_{j+o}          (+o side, at j)
-//   dphi_j   = sum_o ds_o(j-o) theta_{j-o}      (-o side, i = j - o)
-//   dg_j     = sum_o a_o(j-o) ybar_{j-o}
-// with ds_o(i) = a_io (u_io - c_i) r_i [theta_i . phi_{i+o} > 0]. The -o
-// side gathers over i = j - o for the o of the stencil, as the TPU
-// kernel's rolls by -o do: a stencil need not hold -o with o (k = 5 at
-// connectivity 1 and 2 does not, scipy's order-0 zoom rounding half-way
-// coordinates up), so gathering over +o would sum other edges.
 //
-// Design: one thread per voxel, a 1-D grid-stride loop in int64; the
-// offsets travel in the kernel's parameters (__grid_constant__, so they
-// stay in the constant bank and every thread of a warp reads the same
-// entry at once); neighbours are read straight from device memory through
-// L1 / L2, 16 bytes at a time where a width is a multiple of 4 (the
-// forward comes in two instantiations, BY_F, the statistics and gradient
-// passes in four, BY_WIDTHS). A voxel's operands are
-// F- and G-wide rows of any width 1..64, so a thread keeps no row in
-// registers: it streams the rows, and builds
-// its outputs CH channels at a time, sweeping the offsets once per group
-// of CH output channels and recomputing the logits on each sweep. Two
-// passes over the offsets give the softmax (the maximum, then the sums).
-// Validity (and the degree) comes from the voxel's coordinates: a
-// neighbour outside the volume is never read. The offsets run in a fixed
-// order, so two launches give equal bits. All arithmetic is f32.
+// The forward (stencil_attention_generic_kernel): a plane ring
+// (csrc/stencil_generic_ring.cuh). A block stages phi and g of its tile
+// with a +-h halo plane by plane; a thread keeps its voxel's theta row
+// in registers and streams the offsets of its plane in their order, dz
+// group by dz group from the staged planes, with one online softmax: a
+// running maximum from 0 (the relu allows it) that rescales the
+// denominator and the G accumulators when it grows, so each edge's
+// logit is computed once. The edge loop has no branch (an edge outside
+// the volume reads the voxel's own slot and adds nothing), so that the
+// compiler can overlap an edge's shared-memory reads and dot with the
+// previous edge's exponentials. The degree comes from
+// coordinates (K where the voxel is h or more from every face). Bound on
+// the H100: operations, the edges' 2F + 2G flops of dots and sums
+// against each row read once (chip_smoke.py:generic_pass_work).
 //
-// Bound on the H100: bytes, as for the plane-ring kernels (each operand
-// read once, each result written once). This design reads each neighbour
-// row once per offset and sweep from L1 / L2: simple, right, and slow.
+// The statistics pass (stencil_attention_scal_generic_kernel) is still
+// one thread per voxel with a 1-D grid-stride loop in int64; the offsets
+// travel in the kernel's parameters (__grid_constant__, so they stay in
+// the constant bank and every thread of a warp reads the same entry at
+// once); neighbours are read straight from device memory through L1 /
+// L2, 16 bytes at a time where a width is a multiple of 4 (four
+// instantiations, BY_WIDTHS). Two passes over the offsets give the
+// softmax (the maximum, then the sums). Validity (and the degree) comes
+// from the voxel's coordinates: a neighbour outside the volume is never
+// read.
+//
+// The offsets run in a fixed order, so two launches give equal bits. All
+// arithmetic is f32 on the CUDA cores.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "stencil_generic_ring.cuh"
 
 namespace {
 
@@ -57,8 +62,6 @@ namespace {
 constexpr int MAX_K = 343;
 constexpr int MAX_HALO = 3;
 constexpr int MAX_WIDTH = 64;
-// output channels accumulated per sweep over the offsets
-constexpr int CH = 8;
 constexpr int THREADS = 256;
 
 // the offsets as (dz, dy, dx, 0), in the plain version's order
@@ -111,56 +114,6 @@ __device__ __forceinline__ void coords(int64_t v, const Grid& g, int* z,
   *z = (int)((v / (g.W * g.H)) % g.D);
 }
 
-template <bool VF>
-__global__ void __launch_bounds__(THREADS) stencil_attention_generic_kernel(
-    const float* __restrict__ theta, const float* __restrict__ phi,
-    const float* __restrict__ gv, float* __restrict__ out, const Grid gd,
-    const __grid_constant__ Stencil st) {
-  const int64_t n = gd.B * gd.D * gd.H * gd.W;
-  const int F = gd.F, G = gd.G;
-  const int K = st.k;  // the forward's offsets
-  for (int64_t v = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; v < n;
-       v += (int64_t)gridDim.x * blockDim.x) {
-    int z, y, x;
-    coords(v, gd, &z, &y, &x);
-    const float* ti = theta + v * F;
-    int deg = 0;
-    for (int k = 0; k < K; ++k) {
-      const char4 o = st.o[k];
-      deg += inside(z + o.x, y + o.y, x + o.z, gd);
-    }
-    const float r = rsqrtf(fmaxf((float)deg, 1.f));
-    float m = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const char4 o = st.o[k];
-      if (!inside(z + o.x, y + o.y, x + o.z, gd)) continue;
-      const int64_t j = v + step_of(o.x, o.y, o.z, gd);
-      m = fmaxf(m, fmaxf(dot<VF>(ti, phi + j * F, F), 0.f) * r);
-    }
-    for (int c0 = 0; c0 < G; c0 += CH) {
-      float acc[CH];
-#pragma unroll
-      for (int c = 0; c < CH; ++c) acc[c] = 0.f;
-      float den = 0.f;
-      for (int k = 0; k < K; ++k) {
-        const char4 o = st.o[k];
-        if (!inside(z + o.x, y + o.y, x + o.z, gd)) continue;
-        const int64_t j = v + step_of(o.x, o.y, o.z, gd);
-        const float e = expf(fmaxf(dot<VF>(ti, phi + j * F, F), 0.f) * r - m);
-        den += e;
-        const float* gj = gv + j * G + c0;
-#pragma unroll
-        for (int c = 0; c < CH; ++c)
-          if (c0 + c < G) acc[c] = fmaf(e, __ldg(gj + c), acc[c]);
-      }
-      const float inv = 1.f / fmaxf(den, 1e-12f);
-#pragma unroll
-      for (int c = 0; c < CH; ++c)
-        if (c0 + c < G) out[v * G + c0 + c] = acc[c] * inv;
-    }
-  }
-}
-
 // Backward pass 1: scal[i] = (r, m, denom, c).
 template <bool VF, bool VG>
 __global__ void __launch_bounds__(THREADS)
@@ -205,94 +158,8 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// Backward pass 2: dtheta, dphi, dg at each voxel j, as gathers (no
-// atomics): the +o side (dtheta) over the neighbours j + o, then the -o
-// side (dphi, dg) over the voxels i = j - o whose edge o ends at j.
-template <bool VF, bool VG>
-__global__ void __launch_bounds__(THREADS)
-    stencil_attention_bwd_generic_kernel(
-        const float* __restrict__ theta, const float* __restrict__ phi,
-        const float* __restrict__ gv, const float* __restrict__ ybar,
-        const float* __restrict__ scal, float* __restrict__ dtheta,
-        float* __restrict__ dphi, float* __restrict__ dg, const Grid gd,
-        const __grid_constant__ Stencil st) {
-  const int64_t n = gd.B * gd.D * gd.H * gd.W;
-  const int F = gd.F, G = gd.G;
-  const int K = st.k;
-  const int sweeps = (max(F, G) + CH - 1) / CH;
-  for (int64_t v = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; v < n;
-       v += (int64_t)gridDim.x * blockDim.x) {
-    int z, y, x;
-    coords(v, gd, &z, &y, &x);
-    const float* tj = theta + v * F;
-    const float* pj = phi + v * F;
-    const float* gj = gv + v * G;
-    const float* yj = ybar + v * G;
-    const float4 sj = __ldg(reinterpret_cast<const float4*>(scal) + v);
-    const float dj = fmaxf(sj.z, 1e-12f);
-    // +o side: dtheta_j
-    for (int c0 = 0; c0 < F; c0 += CH) {
-      float acc[CH];
-#pragma unroll
-      for (int c = 0; c < CH; ++c) acc[c] = 0.f;
-      for (int k = 0; k < K; ++k) {
-        const char4 o = st.o[k];
-        if (!inside(z + o.x, y + o.y, x + o.z, gd)) continue;
-        const int64_t j = v + step_of(o.x, o.y, o.z, gd);
-        const float* pn = phi + j * F;
-        const float s = dot<VF>(tj, pn, F);
-        if (!(s > 0.f)) continue;
-        const float a = expf(s * sj.x - sj.y) / dj;
-        const float ds = a * (dot<VG>(yj, gv + j * G, G) - sj.w) * sj.x;
-#pragma unroll
-        for (int c = 0; c < CH; ++c)
-          if (c0 + c < F) acc[c] = fmaf(ds, __ldg(pn + c0 + c), acc[c]);
-      }
-#pragma unroll
-      for (int c = 0; c < CH; ++c)
-        if (c0 + c < F) dtheta[v * F + c0 + c] = acc[c];
-    }
-    // -o side: dphi_j and dg_j, CH channels of each per sweep
-    for (int q = 0; q < sweeps; ++q) {
-      const int c0 = q * CH;
-      float ap[CH], ag[CH];
-#pragma unroll
-      for (int c = 0; c < CH; ++c) ap[c] = ag[c] = 0.f;
-      for (int k = 0; k < K; ++k) {
-        const char4 o = st.o[k];
-        const int sz = -o.x, sy = -o.y, sx = -o.z;  // i = j - o
-        if (!inside(z + sz, y + sy, x + sx, gd)) continue;
-        const int64_t i = v + step_of(sz, sy, sx, gd);
-        const float4 si = __ldg(reinterpret_cast<const float4*>(scal) + i);
-        const float* ti = theta + i * F;
-        const float* yi = ybar + i * G;
-        const float s2 = dot<VF>(ti, pj, F);
-        const float a2 =
-            expf(fmaxf(s2, 0.f) * si.x - si.y) / fmaxf(si.z, 1e-12f);
-        if (c0 < F && s2 > 0.f) {
-          const float ds2 = a2 * (dot<VG>(yi, gj, G) - si.w) * si.x;
-#pragma unroll
-          for (int c = 0; c < CH; ++c)
-            if (c0 + c < F) ap[c] = fmaf(ds2, __ldg(ti + c0 + c), ap[c]);
-        }
-        if (c0 < G) {
-#pragma unroll
-          for (int c = 0; c < CH; ++c)
-            if (c0 + c < G) ag[c] = fmaf(a2, __ldg(yi + c0 + c), ag[c]);
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < CH; ++c) {
-        if (c0 + c < F) dphi[v * F + c0 + c] = ap[c];
-        if (c0 + c < G) dg[v * G + c0 + c] = ag[c];
-      }
-    }
-  }
-}
-
 // the instantiation of kernel K for the widths: 16-byte row loads where a
-// width is a multiple of 4 (the forward reads g by scalar loads: F only)
-#define BY_F(K, F) ((F) % 4 == 0 ? K<true> : K<false>)
+// width is a multiple of 4
 #define BY_WIDTHS(K, F, G)                                   \
   ((F) % 4 == 0 ? ((G) % 4 == 0 ? K<true, true> : K<true, false>) \
                 : ((G) % 4 == 0 ? K<false, true> : K<false, false>))
@@ -323,21 +190,142 @@ bool stencil_of(const int32_t* offs, int64_t K, int64_t F, int64_t G,
 
 }  // namespace
 
+
+// The forward on the plane ring. The buffer of a plane holds phi, then g
+// of the staged box.
+template <int L, int CF, int CG>
+__global__ void __launch_bounds__(sg::MAX_THREADS, sg::MIN_BLOCKS)
+    stencil_attention_generic_kernel(const float* __restrict__ theta,
+                                     const float* __restrict__ phi,
+                                     const float* __restrict__ gv,
+                                     float* __restrict__ out, int D, int H,
+                                     int W, int F, int G, const sg::Plan p,
+                                     const __grid_constant__ sg::Stencil st) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + sg::MAX_NBUF;
+  float* bufs = reinterpret_cast<float*>(smem + sg::BAR_BYTES);
+  const int nqf = F / 4, nqg = G / 4;
+  const int seg = p.rows * p.cols;  // voxels of one operand's plane
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cwarps = p.sets * sg::voxel_warps(p);
+  const sg::Tile t = sg::tile_of(p, blockIdx.x, D, H, W);
+  const int ncols = t.cx1 - t.cx0 + 1, h = p.h;
+  if (t.ry1 - t.ry0 + 1 > p.rows || ncols > p.cols) __trap();
+  sg::ring_init(full, empty, p.nbuf, cwarps);
+
+  if (warp == cwarps) {
+    sg::Ops<2> ops{{phi, gv}, {F, G}};
+    sg::produce(p, t, st, 1, D, empty, [&](int s, int pl) {
+      sg::stage_plane(bufs + (size_t)s * seg * (F + G), ops, p, t, ncols,
+                      D, H, W, pl, &full[s], lane);
+    });
+    return;
+  }
+
+  const sg::Thread th = sg::thread_of<L>(p, t, warp, lane);
+  const int pf = L == 1 ? sg::rot_of(lane, nqf) : 0;
+  const int pg = L == 1 ? sg::rot_of(lane, nqg) : 0;
+  // the voxel's staged slot; in a warp whose voxels are all h or more
+  // from the y and x faces every in-plane neighbour lies inside
+  const int at = (th.y - t.ry0) * ncols + (th.x - t.cx0);
+  const bool inner = __all_sync(0xffffffffu, !th.active || (th.y >= h &&
+                                th.y + h < H && th.x >= h && th.x + h < W));
+  sg::Ring ring{full, empty, bufs, seg * (F + G), p.nbuf, t.pz0, t.pz1,
+                p.reload, 0, t.pz0};
+  for (int z = t.za + th.set; z < t.zb; z += p.sets) {
+    if (!p.reload) ring.enter(z, h, lane);
+    const int64_t v = (((int64_t)t.b * D + z) * H + th.y) * W + th.x;
+    float4 tc[CF], acc[CG];
+    float rs = 0.f;
+    if (th.active) {
+      sg::load_g<L, CF>(theta + v * F, nqf, pf, th.sub, tc);
+      int deg = st.k;
+      if (z < h || z + h >= D || th.y < h || th.y + h >= H || th.x < h ||
+          th.x + h >= W) {
+        deg = 0;
+        for (int k = 0; k < st.k; ++k) {
+          const char4 o = st.o[k];
+          deg += z + o.x >= 0 && z + o.x < D && th.y + o.y >= 0 &&
+                 th.y + o.y < H && th.x + o.z >= 0 && th.x + o.z < W;
+        }
+      }
+      rs = rsqrtf(fmaxf((float)deg, 1.f));
+    }
+    sg::zero(acc);
+    float m = 0.f, den = 0.f;
+    for (int d = -h; d <= h; ++d) {
+      if (!sg::step_reads(st, z, d, 1, D)) continue;
+      const float* buf = p.reload ? ring.next() : ring.plane(z + d);
+      // the offsets with dz = d, edge by edge
+      auto edges = [&](auto checked) {
+        const float* pb = buf;
+        const float* gb = buf + seg * F;
+#pragma unroll sg::FWD_UNROLL
+        for (int k = st.start[d + sg::MAX_HALO];
+             k < st.start[d + sg::MAX_HALO + 1]; ++k) {
+          // an edge outside the volume reads the voxel's own slot and
+          // adds nothing: no branch, so unrolled edges overlap
+          const char4 o = st.o[k];
+          const bool ok = !decltype(checked)::value ||
+                          (th.y + o.y >= 0 && th.y + o.y < H &&
+                           th.x + o.z >= 0 && th.x + o.z < W);
+          const int idx = ok ? at + o.y * ncols + o.z : at;
+          float4 pn[CF], gn[CG];
+          sg::load_s<L, CF>(pb + idx * F, nqf, pf, th.sub, pn);
+          sg::load_s<L, CG>(gb + idx * G, nqg, pg, th.sub, gn);
+          const float l =
+              ok ? fmaxf(sg::dot<L, CF>(tc, pn, lane), 0.f) * rs : 0.f;
+          // the online softmax: a larger logit rescales (sc = 1 else)
+          const float mn = fmaxf(m, l);
+          const float sc = __expf(m - mn);
+          const float e = ok ? __expf(l - mn) : 0.f;
+          den = fmaf(den, sc, e);
+#pragma unroll
+          for (int q = 0; q < CG; ++q) {
+            acc[q].x = fmaf(e, gn[q].x, acc[q].x * sc);
+            acc[q].y = fmaf(e, gn[q].y, acc[q].y * sc);
+            acc[q].z = fmaf(e, gn[q].z, acc[q].z * sc);
+            acc[q].w = fmaf(e, gn[q].w, acc[q].w * sc);
+          }
+          m = mn;
+        }
+      };
+      if (th.active) {
+        if (inner)
+          edges(sg::Checked<false>());
+        else
+          edges(sg::Checked<true>());
+      }
+      if (p.reload) ring.done_step(lane);
+    }
+    if (th.active)
+      sg::store_g<L, CG>(out + v * G, nqg, pg, th.sub, acc,
+                         1.f / fmaxf(den, 1e-12f));
+  }
+}
+
 // out (B, D, H, W, G) from theta, phi (B, D, H, W, F) and g (B, D, H, W,
-// G); offs: K (dz, dy, dx) int32 triples in host memory
+// G), F and G multiples of 4; offs: K (dz, dy, dx) int32 triples in host
+// memory; args: the plan (kernels/window_attention.py:generic_fwd_plan)
 extern "C" int stencil_attention_generic_f32(
     const void* theta, const void* phi, const void* g, void* out, int64_t B,
     int64_t D, int64_t H, int64_t W, int64_t F, int64_t G,
-    const int32_t* offs, int64_t K, void* stream) {
-  Stencil st;
-  if (!stencil_of(offs, K, F, G, &st)) return -1;
-  const int64_t total = B * D * H * W;
-  if (total == 0) return 0;
-  const Grid gd{B, D, H, W, (int)F, (int)G};
-  BY_F(stencil_attention_generic_kernel, F)<<<
-      (unsigned)grid_blocks(total), THREADS, 0, (cudaStream_t)stream>>>(
+    const int32_t* offs, int64_t K, const int64_t* args, void* stream) {
+  sg::Stencil st;
+  if (!sg::stencil_of(offs, K, F, G, &st)) return -1;
+  if (B * D * H * W == 0) return 0;
+  const sg::Plan p = sg::plan_of(args);
+  const int cls = sg::class_of(F, G);
+  const int vox = (int)(F + G);
+  if (!sg::plan_ok(p, B, D, H, W, st.h, sg::lanes_of(cls), vox)) return -1;
+  auto kernel = SG_BY_CLASS(stencil_attention_generic_kernel, cls);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       p.smem);
+  const int64_t blocks = B * p.tiles_x * p.tiles_y * p.tiles_z;
+  kernel<<<(unsigned)blocks, p.threads, p.smem, (cudaStream_t)stream>>>(
       (const float*)theta, (const float*)phi, (const float*)g, (float*)out,
-      gd, st);
+      (int)D, (int)H, (int)W, (int)F, (int)G, p, st);
   return (int)cudaGetLastError();
 }
 
@@ -359,22 +347,11 @@ extern "C" int stencil_attention_scal_generic_f32(
   return (int)cudaGetLastError();
 }
 
-// dtheta, dphi (B, D, H, W, F) and dg (B, D, H, W, G) from the operands,
-// ybar and the statistics scal (B, D, H, W, 4)
-extern "C" int stencil_attention_bwd_generic_f32(
-    const void* theta, const void* phi, const void* g, const void* ybar,
-    const void* scal, void* dtheta, void* dphi, void* dg, int64_t B,
-    int64_t D, int64_t H, int64_t W, int64_t F, int64_t G,
-    const int32_t* offs, int64_t K, void* stream) {
-  Stencil st;
-  if (!stencil_of(offs, K, F, G, &st)) return -1;
-  const int64_t total = B * D * H * W;
-  if (total == 0) return 0;
-  const Grid gd{B, D, H, W, (int)F, (int)G};
-  BY_WIDTHS(stencil_attention_bwd_generic_kernel, F, G)<<<
-      (unsigned)grid_blocks(total), THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)theta, (const float*)phi, (const float*)g,
-      (const float*)ybar, (const float*)scal, (float*)dtheta, (float*)dphi,
-      (float*)dg, gd, st);
-  return (int)cudaGetLastError();
+
+// blocks of the forward of width class `cls` (sg::class_of) an SM holds
+// at `threads` threads and `smem` bytes of dynamic shared memory
+extern "C" int stencil_attention_generic_occupancy(int cls, int threads,
+                                                   int smem) {
+  return sg::occupancy(SG_BY_CLASS(stencil_attention_generic_kernel, cls),
+                       threads, smem);
 }

@@ -12,9 +12,10 @@ Two kernel families, chosen by the operands (never by a failure):
 
 - the plane ring (csrc/stencil_attention.cu) takes the shipped stencil
   (KERNEL_OFFSETS: k = 3, connectivity 2, no self loop) with F = G = 8;
-- the generic kernels (csrc/stencil_attention_generic.cu) take every
-  other stencil of up to GENERIC_MAX_K offsets within GENERIC_MAX_HALO
-  of the centre and widths 1..GENERIC_MAX_WIDTH.
+- the generic kernels (csrc/stencil_attention_generic.cu, forward and
+  statistics pass; csrc/stencil_attention_generic_bwd.cu, gradient pass)
+  take every other stencil of up to GENERIC_MAX_K offsets within
+  GENERIC_MAX_HALO of the centre and widths 1..GENERIC_MAX_WIDTH.
 
 A CUDA tensor that neither takes raises; CPU tensors take the plain
 versions. `stencil_attention`, `stencil_attention_scal` and
@@ -22,11 +23,13 @@ versions. `stencil_attention`, `stencil_attention_scal` and
 `stencil_attention_generic`, `stencil_attention_scal_generic` and
 `stencil_attention_bwd_generic` launch (and count) the generic kernels.
 
-The launch geometry of the plane ring's forward and gradient pass is
-decided here (fwd_plan, bwd_plan): a block owns a tile of (batch
+The launch geometry of the plane-ring forward and gradient pass is
+decided here (fwd_plan, bwd_plan; for the generic forward and gradient
+pass generic_fwd_plan, generic_bwd_plan): a block owns a tile of (batch
 element, run of z-planes, run of rows, run of columns) and streams it
 along z through a ring of shared-memory plane buffers, each holding the
-tile's rows and columns with a +-1 halo. The plans raise where a tile
+tile's rows and columns with a halo (+-1; the generic kernels' +-h, h
+the stencil's largest offset component). The plans raise where a tile
 plan would leave a voxel uncovered; the C launchers run the `args`
 vector they are handed and refuse one whose buffers or coverage differ
 from the kernel's.
@@ -304,6 +307,170 @@ def bwd_plan(B, D, H, W, runs=None, nbuf=None):
     return _plan(B, D, H, W, True, runs, nbuf)
 
 
+# --- the generic kernels' plane ring (csrc/stencil_generic_ring.cuh) -----------
+
+# plane buffers a generic ring may have, their mbarriers' bytes, threads a
+# block may have (the kernels' launch bound)
+GENERIC_MAX_NBUF, GENERIC_BAR_BYTES, GENERIC_MAX_THREADS = 16, 256, 512
+# the tile (planes, rows, columns) and the sets of compute warps that take
+# the tile's planes in turn, by pass (fwd; the gradient pass's +o and -o
+# sides), where the grid and shared memory allow. On the card (NVIDIA H100
+# 80GB HBM3, 700 W; tools/generic_attention_variants.py) these were the
+# fastest of 8 tiles of 32 to 128 voxels a plane and 2 to 8 sets at
+# variant A's step shape (10 x 64^3, 98 offsets, F = 16, G = 4): the
+# forward's within 3% of the next three, and the best at batch 5 too
+GENERIC_RUNS = {"fwd": (16, 8, 8), "plus": (32, 8, 16), "minus": (32, 8, 16)}
+GENERIC_SETS = {"fwd": 4, "plus": 3, "minus": 3}
+
+
+def generic_halo(offsets):
+    """The largest |component| of the offsets: the generic rings' halo."""
+    return max(abs(a) for o in offsets for a in o)
+
+
+def generic_class(F, G):
+    """(lanes a voxel, float4 chunks of an F-wide row a lane holds, of a
+    G-wide one): the kernels' width class (csrc/stencil_generic_ring.cuh:
+    class_of)."""
+    qf, qg = _cdiv(F, 4), _cdiv(G, 4)
+    if qf <= 4 and qg <= 1:
+        return 1, 4, 1
+    if qf <= 4 and qg <= 4:
+        return 1, 4, 4
+    return 4, 4, 4
+
+
+def generic_voxel(kind, F, G):
+    """Floats of a staged voxel: phi and g (fwd, plus), theta, ybar and
+    the statistics (minus), each row padded to a multiple of 4 (the
+    wrappers pad the channels)."""
+    return 4 * _cdiv(F, 4) + 4 * _cdiv(G, 4) + (4 if kind == "minus" else 0)
+
+
+def _generic_one(kind, B, D, H, W, F, G, h, runs, sets, nbuf, reload):
+    zr, yr, xr = (min(r, n) for r, n in zip(runs, (D, H, W)))
+    lanes = generic_class(F, G)[0]
+    tiles = (_cdiv(W, xr), _cdiv(H, yr), _cdiv(D, zr))
+    rows, cols = min(yr + 2 * h, H), min(xr + 2 * h, W)
+    threads = 32 * (sets * _cdiv(yr * xr * lanes, 32) + 1)
+    smem = GENERIC_BAR_BYTES + nbuf * rows * cols * generic_voxel(
+        kind, F, G) * 4
+    p = {"kind": kind, "run": (zr, yr, xr), "tiles": tiles,
+         "blocks": B * tiles[0] * tiles[1] * tiles[2], "rows": rows,
+         "cols": cols, "nbuf": nbuf, "sets": sets, "reload": reload,
+         "threads": threads, "smem": smem, "halo": h, "lanes": lanes,
+         "args": (zr, yr, xr, *tiles, rows, cols, nbuf, sets, reload,
+                  threads, smem, h, lanes)}
+    return p
+
+
+def _generic_check(p, B, D, H, W, F, G):
+    """Raise unless plan `p` covers every voxel once, within its buffers
+    and the card's limits (csrc/stencil_generic_ring.cuh:plan_ok)."""
+    zr, yr, xr = p["run"]
+    tx, ty, tz = p["tiles"]
+    h, sets, nbuf = p["halo"], p["sets"], p["nbuf"]
+    if min(zr, yr, xr) < 1 or tx * xr < W or ty * yr < H or tz * zr < D \
+            or (tx - 1) * xr >= W or (ty - 1) * yr >= H \
+            or (tz - 1) * zr >= D:
+        raise ValueError(f"generic attention plan {p['args']} does not "
+                         f"cover {(B, D, H, W)} once")
+    if p["rows"] != min(yr + 2 * h, H) or p["cols"] != min(xr + 2 * h, W) \
+            or p["lanes"] != generic_class(F, G)[0] \
+            or not (p["reload"] == 1 and sets == 1
+                    and 2 <= nbuf <= GENERIC_MAX_NBUF
+                    or p["reload"] == 0 and sets >= 1
+                    and 2 * h + sets + 1 <= nbuf <= GENERIC_MAX_NBUF) \
+            or p["smem"] != GENERIC_BAR_BYTES + nbuf * p["rows"] * p["cols"] \
+            * generic_voxel(p["kind"], F, G) * 4:
+        raise ValueError(f"generic attention plan {p['args']}: buffers "
+                         "differ from the kernel's")
+    if p["threads"] != 32 * (sets * _cdiv(yr * xr * p["lanes"], 32) + 1) \
+            or p["threads"] > GENERIC_MAX_THREADS or p["smem"] > SMEM_BLOCK:
+        raise ValueError(f"generic attention plan {p['args']}: block too "
+                         "large")
+    return p
+
+
+def _generic_shrink(yr, xr):
+    """Tiles from (yr, xr) down: rows halved first, then columns."""
+    out = [(yr, xr)]
+    while yr > 1:
+        yr = _cdiv(yr, 2)
+        out.append((yr, xr))
+    while xr > 1:
+        xr = _cdiv(xr, 2)
+        out.append((yr, xr))
+    return out
+
+
+def _generic_plan(kind, B, D, H, W, F, G, h, runs, sets, nbuf, reload):
+    if min(D, H, W) < 1 or B < 0:
+        raise ValueError(f"generic attention plan: empty grid "
+                         f"{(B, D, H, W)}")
+    if not 0 <= h <= GENERIC_MAX_HALO:
+        raise ValueError(f"generic attention plan: halo {h}")
+    if runs is not None:
+        # a given tile (the sweep's): the whole ring unless `reload`
+        reload = int(bool(reload))
+        sets = 1 if reload else (sets or GENERIC_SETS[kind])
+        nbuf = nbuf or (2 if reload else 2 * h + sets + 1)
+        return _generic_check(_generic_one(kind, B, D, H, W, F, G, h, runs,
+                                           sets, nbuf, reload),
+                              B, D, H, W, F, G)
+    zr, yr, xr = (min(r, n) for r, n in zip(GENERIC_RUNS[kind], (D, H, W)))
+    lanes = generic_class(F, G)[0]
+    tiles = _generic_shrink(yr, xr)
+    # the whole ring with at least one warp of voxels a tile plane, sets
+    # from the preferred down to one; else the reload ring
+    for y, x in tiles:
+        if y * x < min(32 // lanes, H * W):
+            break
+        for s in range(GENERIC_SETS[kind], 0, -1):
+            p = _generic_one(kind, B, D, H, W, F, G, h, (zr, y, x), s,
+                             2 * h + s + 1, 0)
+            if p["smem"] <= SMEM_BLOCK and p["threads"] <= \
+                    GENERIC_MAX_THREADS:
+                return _generic_check(p, B, D, H, W, F, G)
+    for y, x in tiles:
+        p = _generic_one(kind, B, D, H, W, F, G, h, (zr, y, x), 1, 2, 1)
+        if p["smem"] <= SMEM_BLOCK and p["threads"] <= GENERIC_MAX_THREADS:
+            return _generic_check(p, B, D, H, W, F, G)
+    raise ValueError(f"generic attention plan: no tile of {(D, H, W)} "
+                     f"fits F = {F}, G = {G}, halo {h}")
+
+
+@functools.lru_cache(maxsize=None)
+def generic_fwd_plan(B, D, H, W, F, G, h, runs=None, sets=None, nbuf=None,
+                     reload=None):
+    """Geometry of one launch of csrc/stencil_attention_generic.cu's
+    forward on a (B, D, H, W) grid at widths F, G and halo h: a block
+    owns a tile of GENERIC_RUNS["fwd"] (clipped to the grid) and stages
+    phi and g of its rows and columns +-h, plane by plane, into a ring;
+    the whole ring (2h + sets + 1 buffers, GENERIC_SETS sets of compute
+    warps) where shared memory holds it for a tile of one warp's voxels
+    or more, the tile's rows then columns halved until it does; else the
+    reload ring (two buffers, one set). `runs` (with `sets`, `nbuf`,
+    `reload`) gives the tile instead. `args` is the vector the launcher
+    runs."""
+    return _generic_plan("fwd", B, D, H, W, F, G, h, runs, sets, nbuf,
+                         reload)
+
+
+@functools.lru_cache(maxsize=None)
+def generic_bwd_plan(B, D, H, W, F, G, h, runs=None, sets=None, nbuf=None,
+                     reload=None):
+    """Geometry of one launch of csrc/stencil_attention_generic_bwd.cu's
+    gradient pass: the +o side's plan ("plus": phi and g staged) and the
+    -o side's ("minus": theta, ybar and the statistics staged), each
+    chosen as generic_fwd_plan chooses (GENERIC_RUNS / GENERIC_SETS of
+    its side); `args` is the +o side's vector, then the -o side's."""
+    plus, minus = (_generic_plan(k, B, D, H, W, F, G, h, runs, sets, nbuf,
+                                 reload) for k in ("plus", "minus"))
+    return {"plus": plus, "minus": minus,
+            "args": plus["args"] + minus["args"]}
+
+
 def _args(vals):
     return (ctypes.c_int64 * len(vals))(*vals)
 
@@ -328,22 +495,42 @@ def _forward(theta, phi, g, offsets):
     return out
 
 
+def _pad4(t):
+    """t (..., C) with its channels zero-padded to a multiple of 4: the
+    generic plane rings stage 16-byte rows (a zero channel adds nothing
+    to a dot, a sum or a gradient); t itself where C is one already."""
+    c = t.shape[-1]
+    return t if c % 4 == 0 else \
+        torch.nn.functional.pad(t, (0, -c % 4)).contiguous()
+
+
+def _unpad(t, c):
+    """The first c channels of a padded result, contiguous."""
+    return t if t.shape[-1] == c else t[..., :c].contiguous()
+
+
 def stencil_attention_generic(theta, phi, g, offsets):
     """Kernel wrapper of stencil_attention_plain on any stencil and widths
-    of generic_takes: CUDA tensors launch csrc/stencil_attention_generic.cu
-    (else raise); CPU tensors take the plain version. Not differentiable
-    by itself: StencilAttentionFunction calls it."""
+    of generic_takes: CUDA tensors launch csrc/stencil_attention_generic.cu's
+    plane-ring forward on generic_fwd_plan (else raise), widths that are
+    not a multiple of 4 zero-padded to one; CPU tensors take the plain
+    version. Not differentiable by itself: StencilAttentionFunction calls
+    it."""
     if not theta.is_cuda:
         return stencil_attention_plain(theta, phi, g, offsets)
     (B, D, H, W), F, G = _check_generic("stencil_attention_generic",
                                         offsets, (theta, phi), (g,))
+    if g.numel() == 0:
+        return torch.empty_like(g)
+    plan = generic_fwd_plan(B, D, H, W, F, G, generic_halo(offsets))
+    theta, phi, g = (_pad4(t) for t in (theta, phi, g))
     out = torch.empty_like(g)
     offs, K = _offsets_arg(offsets)
     _build.launch("stencil_attention_generic_f32", theta.data_ptr(),
                   phi.data_ptr(), g.data_ptr(), out.data_ptr(), B, D, H, W,
-                  F, G, offs, K)
+                  theta.shape[-1], g.shape[-1], offs, K, _args(plan["args"]))
     stencil_attention_generic.launches += 1
-    return out
+    return _unpad(out, G)
 
 
 stencil_attention_generic.launches = 0
@@ -484,23 +671,29 @@ def _check_scal(name, scal, grid):
 def stencil_attention_bwd_generic(theta, phi, g, ybar, scal, offsets):
     """Kernel wrapper of stencil_attention_bwd_plain on any stencil and
     widths of generic_takes: CUDA tensors launch
-    csrc/stencil_attention_generic.cu's gradient pass (else raise), whose
-    dphi and dg gather over i = j - o; CPU tensors take the plain
-    version."""
+    csrc/stencil_attention_generic_bwd.cu's two plane rings on
+    generic_bwd_plan (else raise), the -o side's dphi and dg gathered over
+    i = j - o, widths that are not a multiple of 4 zero-padded to one;
+    CPU tensors take the plain version."""
     if not theta.is_cuda:
         return stencil_attention_bwd_plain(theta, phi, g, ybar, scal,
                                            offsets)
     (B, D, H, W), F, G = _check_generic(
         "stencil_attention_bwd_generic", offsets, (theta, phi), (g, ybar))
     _check_scal("stencil_attention_bwd_generic", scal, (B, D, H, W))
+    if theta.numel() == 0:
+        return tuple(torch.empty_like(t) for t in (theta, phi, g))
+    plan = generic_bwd_plan(B, D, H, W, F, G, generic_halo(offsets))
+    theta, phi, g, ybar = (_pad4(t) for t in (theta, phi, g, ybar))
     dtheta, dphi, dg = (torch.empty_like(t) for t in (theta, phi, g))
     offs, K = _offsets_arg(offsets)
     _build.launch("stencil_attention_bwd_generic_f32", theta.data_ptr(),
                   phi.data_ptr(), g.data_ptr(), ybar.data_ptr(),
                   scal.data_ptr(), dtheta.data_ptr(), dphi.data_ptr(),
-                  dg.data_ptr(), B, D, H, W, F, G, offs, K)
+                  dg.data_ptr(), B, D, H, W, theta.shape[-1], g.shape[-1],
+                  offs, K, _args(plan["args"]))
     stencil_attention_bwd_generic.launches += 1
-    return dtheta, dphi, dg
+    return _unpad(dtheta, F), _unpad(dphi, F), _unpad(dg, G)
 
 
 stencil_attention_bwd_generic.launches = 0

@@ -115,7 +115,9 @@ def test_cuda_sources_include_plain_cuda_headers_only():
     assert sorted(srcs) == ["conv3x3x3.cu", "conv3x3x3_c1.cu",
                             "conv3x3x3_dw.cu", "conv_wgmma.cuh",
                             "maxpool2.cu", "stencil_attention.cu",
-                            "stencil_attention_generic.cu", "upsample2x.cu"]
+                            "stencil_attention_generic.cu",
+                            "stencil_attention_generic_bwd.cu",
+                            "stencil_generic_ring.cuh", "upsample2x.cu"]
     for f in srcs:
         with open(os.path.join(CSRC, f)) as fp:
             includes = re.findall(r"#\s*include\s*[<\"]([^>\"]+)", fp.read())

@@ -70,9 +70,17 @@ with a k = 5, connectivity-2, self-loop PCM of widths 16 / 4 on the
 generic kernels, from the trained backbone):
 
 - sound: the tree as it is;
-- dphi_plus: the gradient pass gathers dphi and dg over i = j + o
-  instead of j - o (right on a symmetric stencil, wrong on k = 5's);
-- fwd_drop_last: the forward skips the stencil's last offset.
+- dphi_plus: the gradient pass's -o side gathers dphi and dg over i = j +
+  o instead of j - o (right on a symmetric stencil, wrong on k = 5's);
+- fwd_drop_last: the forward skips the stencil's last offset;
+- halo_stale: the producer of every generic plane ring never stages a
+  tile's first halo plane below the tile; its buffer holds the tile's
+  first plane instead (the dz = -h taps of that plane read a wrong
+  plane);
+- last_col: every generic plane-ring kernel leaves each tile's last
+  column uncomputed;
+- no_rescale: the forward's online softmax never rescales its
+  denominator and accumulators when the running maximum grows.
 
 With --variant-b (variant B: 'in' norms, PReLU, dropout, AdamW with a
 group, IntRegAffRefineLoss; its stacks on the unfused conv kernels) each
@@ -179,14 +187,24 @@ GOLDEN_VARIANTS = {
     "scal_late": ATT_VARIANTS["scal_late"],
 }
 SAG = "stencil_attention_generic.cu"
-SIGN_LINE = "        const int sz = -o.x, sy = -o.y, sx = -o.z;  // i = j - o"
-K_LINE = "  const int K = st.k;  // the forward's offsets"
+SAB = "stencil_attention_generic_bwd.cu"
+RING = "stencil_generic_ring.cuh"
+EDGE_LOOP = ("        for (int k = st.start[d + sg::MAX_HALO];\n"
+             "             k < st.start[d + sg::MAX_HALO + 1]; ++k) {")
 GENERIC_VARIANTS = {
     "sound": None,
-    "dphi_plus": (SAG, SIGN_LINE, "        const int sz = o.x, sy = o.y, "
-                  "sx = o.z;  // i = j - o"),
-    "fwd_drop_last": (SAG, K_LINE,
-                      "  const int K = st.k - 1;  // the forward's offsets"),
+    "dphi_plus": (SAB, "  const int sgn = -1;", "  const int sgn = 1;"),
+    "fwd_drop_last": (SAG, EDGE_LOOP, EDGE_LOOP.replace(
+        "k < st.start[d + sg::MAX_HALO + 1];",
+        "k < min(st.start[d + sg::MAX_HALO + 1], st.k - 1);")),
+    "halo_stale": (RING, "    for (int pl = t.pz0; pl <= t.pz1; ++pl) "
+                   "next(pl);", "    for (int pl = t.pz0; pl <= t.pz1; ++pl) "
+                   "next(pl == t.pz0 && pl < t.za ? t.za : pl);"),
+    "last_col": (RING, "  th.active = vi < p.yr * p.xr && th.y < t.yb && "
+                 "th.x < t.xb;", "  th.active = vi < p.yr * p.xr && "
+                 "th.y < t.yb && th.x < t.xb - 1;"),
+    "no_rescale": (SAG, "          const float sc = __expf(m - mn);",
+                   "          const float sc = 1.f;"),
 }
 VARIANT_B_VARIANTS = {"sound": None, "dw64": DW64}
 C1 = "conv3x3x3_c1.cu"

@@ -163,7 +163,7 @@ traceback and a non-zero exit:
    pred Dice >= 0.99.
 20. generic attention (after 14): ptxas's report of the generic
    stencil-attention kernels (csrc/stencil_attention_generic.cu, the
-   plane-ring forward and the statistics pass;
+   plane-ring forward and statistics pass;
    csrc/stencil_attention_generic_bwd.cu, the gradient pass's two plane
    rings), per instantiation, then each pass at every case of
    GENERIC_CASES (k = 3 connectivity 1 and 3, k = 5 connectivity 2, k = 7
@@ -2803,8 +2803,8 @@ def train_resume_phase(smp, first, card):
 # (stencil (k, connectivity, self loop), (F, G), batch, grid) of each check
 # of the generic kernels: 64^3 but a ragged grid at halo 3; the last is
 # variant A's step shape, whose times the kernels line reports. F = G = 64
-# at halo 3 takes the reload ring (generic_fwd_plan), the others the whole
-# ring
+# at halo 3 takes the reload ring (generic_fwd_plan, generic_scal_plan),
+# the others the whole ring
 GENERIC_CASES = [((3, 1, True), (16, 4), 2, (64, 64, 64)),
                  ((3, 3, True), (33, 1), 2, (64, 64, 64)),
                  ((5, 2, True), (16, 4), 2, (64, 64, 64)),
@@ -2820,15 +2820,19 @@ GENERIC_KERNELS = ("stencil_attention_generic_kernel",
 
 def generic_plans(B, grid, F, G, offs):
     """(name, plan, blocks an SM holds) of each plane-ring launch of the
-    generic forward and gradient pass on these operands."""
+    generic forward, statistics pass and gradient pass on these
+    operands."""
     wa = window_attention
     lib = _build.load()
     cls = {(1, 4, 1): 0, (1, 4, 4): 1, (4, 4, 4): 2}[wa.generic_class(F, G)]
     h = wa.generic_halo(offs)
     fwd = wa.generic_fwd_plan(B, *grid, F, G, h)
+    scal = wa.generic_scal_plan(B, *grid, F, G, h)
     bwd = wa.generic_bwd_plan(B, *grid, F, G, h)
     return [("forward", fwd, lib.stencil_attention_generic_occupancy(
-        cls, fwd["threads"], fwd["smem"]))] + [
+        cls, fwd["threads"], fwd["smem"])),
+        ("statistics", scal, lib.stencil_attention_scal_generic_occupancy(
+            cls, scal["threads"], scal["smem"]))] + [
         (f"gradient {side}", bwd[side],
          lib.stencil_attention_bwd_generic_occupancy(
              int(side == "minus"), cls, bwd[side]["threads"],

@@ -1,12 +1,13 @@
-// The plane ring of the generic stencil-attention forward and gradient
-// pass (csrc/stencil_attention_generic.cu, csrc/stencil_attention_generic_bwd.cu):
+// The plane ring of the generic stencil-attention forward, statistics
+// pass and gradient pass (csrc/stencil_attention_generic.cu,
+// csrc/stencil_attention_generic_bwd.cu):
 // the stencil and the launch plan as the kernels take them, a block's
 // tile, the producer warp's staging and the compute warps' view of the
 // ring, and the width-class vector helpers.
 //
 // A block owns a tile (batch element, run of z-planes, run of rows, run of
-// columns; kernels/window_attention.py:generic_fwd_plan / generic_bwd_plan
-// decide the geometry and the launchers refuse a plan whose buffers or
+// columns; kernels/window_attention.py:generic_fwd_plan /
+// generic_scal_plan / generic_bwd_plan decide the geometry and the launchers refuse a plan whose buffers or
 // coverage differ from this build's). It streams the tile along z through
 // a ring of shared-memory plane buffers, each holding the operands its
 // neighbours are gathered from over the tile's rows and columns with a
@@ -70,9 +71,10 @@ constexpr int MAX_THREADS = 512;
 // blocks of MAX_THREADS threads an SM must hold: caps a thread's registers
 constexpr int MIN_BLOCKS = 1;
 // offsets of an edge loop unrolled together: the forward's, the gradient
-// pass's (tools/generic_attention_variants.py: 2 cost the forward ~5%
-// and gained the gradient pass ~6% at variant A's step shape)
-constexpr int FWD_UNROLL = 1, BWD_UNROLL = 2;
+// pass's, the statistics pass's (tools/generic_attention_variants.py: 2
+// cost the forward ~5% and the statistics pass ~30% and gained the
+// gradient pass ~6% at variant A's step shape)
+constexpr int FWD_UNROLL = 1, BWD_UNROLL = 2, SCAL_UNROLL = 1;
 
 // the offsets as (dz, dy, dx, 0), grouped by dz in their given order
 // within a group; the offsets with dz = d are o[start[d + MAX_HALO]] ..
@@ -465,6 +467,24 @@ template <bool C>
 struct Checked {
   static constexpr bool value = C;
 };
+
+// 1 / sqrt(max(deg, 1)) of voxel (z, y, x): deg, its offsets whose
+// neighbour lies inside the volume, is K where the voxel is h or more from
+// every face, else counted
+__device__ __forceinline__ float rsqrt_degree(const Stencil& st, int z,
+                                              int y, int x, int D, int H,
+                                              int W, int h) {
+  int deg = st.k;
+  if (z < h || z + h >= D || y < h || y + h >= H || x < h || x + h >= W) {
+    deg = 0;
+    for (int k = 0; k < st.k; ++k) {
+      const char4 o = st.o[k];
+      deg += z + o.x >= 0 && z + o.x < D && y + o.y >= 0 && y + o.y < H &&
+             x + o.z >= 0 && x + o.z < W;
+    }
+  }
+  return rsqrtf(fmaxf((float)deg, 1.f));
+}
 
 // the block's thread: its voxel (r, c) of the tile plane, its lane within
 // the voxel's lanes, its warp's set

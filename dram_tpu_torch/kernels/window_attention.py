@@ -24,9 +24,10 @@ versions. `stencil_attention`, `stencil_attention_scal` and
 `stencil_attention_bwd_generic` launch (and count) the generic kernels.
 
 The launch geometry of the plane-ring forward and gradient pass is
-decided here (fwd_plan, bwd_plan; for the generic forward and gradient
-pass generic_fwd_plan, generic_bwd_plan): a block owns a tile of (batch
-element, run of z-planes, run of rows, run of columns) and streams it
+decided here (fwd_plan, bwd_plan; for the generic kernels
+generic_fwd_plan, generic_scal_plan, generic_bwd_plan): a block owns a
+tile of (batch element, run of z-planes, run of rows, run of columns)
+and streams it
 along z through a ring of shared-memory plane buffers, each holding the
 tile's rows and columns with a halo (+-1; the generic kernels' +-h, h
 the stencil's largest offset component). The plans raise where a tile
@@ -313,14 +314,16 @@ def bwd_plan(B, D, H, W, runs=None, nbuf=None):
 # block may have (the kernels' launch bound)
 GENERIC_MAX_NBUF, GENERIC_BAR_BYTES, GENERIC_MAX_THREADS = 16, 256, 512
 # the tile (planes, rows, columns) and the sets of compute warps that take
-# the tile's planes in turn, by pass (fwd; the gradient pass's +o and -o
-# sides), where the grid and shared memory allow. On the card (NVIDIA H100
-# 80GB HBM3, 700 W; tools/generic_attention_variants.py) these were the
-# fastest of 8 tiles of 32 to 128 voxels a plane and 2 to 8 sets at
-# variant A's step shape (10 x 64^3, 98 offsets, F = 16, G = 4): the
-# forward's within 3% of the next three, and the best at batch 5 too
-GENERIC_RUNS = {"fwd": (16, 8, 8), "plus": (32, 8, 16), "minus": (32, 8, 16)}
-GENERIC_SETS = {"fwd": 4, "plus": 3, "minus": 3}
+# the tile's planes in turn, by pass (fwd; the statistics pass, scal; the
+# gradient pass's +o and -o sides), where the grid and shared memory
+# allow. On the card (NVIDIA H100 80GB HBM3, 700 W;
+# tools/generic_attention_variants.py) these were the fastest of 8 tiles
+# of 32 to 128 voxels a plane and 2 to 8 sets at variant A's step shape
+# (10 x 64^3, 98 offsets, F = 16, G = 4): the forward's within 3% of the
+# next three, and the best at batch 5 too
+GENERIC_RUNS = {"fwd": (16, 8, 8), "scal": (16, 8, 8), "plus": (32, 8, 16),
+                "minus": (32, 8, 16)}
+GENERIC_SETS = {"fwd": 4, "scal": 4, "plus": 3, "minus": 3}
 
 
 def generic_halo(offsets):
@@ -341,8 +344,8 @@ def generic_class(F, G):
 
 
 def generic_voxel(kind, F, G):
-    """Floats of a staged voxel: phi and g (fwd, plus), theta, ybar and
-    the statistics (minus), each row padded to a multiple of 4 (the
+    """Floats of a staged voxel: phi and g (fwd, scal, plus), theta, ybar
+    and the statistics (minus), each row padded to a multiple of 4 (the
     wrappers pad the channels)."""
     return 4 * _cdiv(F, 4) + 4 * _cdiv(G, 4) + (4 if kind == "minus" else 0)
 
@@ -454,6 +457,17 @@ def generic_fwd_plan(B, D, H, W, F, G, h, runs=None, sets=None, nbuf=None,
     `reload`) gives the tile instead. `args` is the vector the launcher
     runs."""
     return _generic_plan("fwd", B, D, H, W, F, G, h, runs, sets, nbuf,
+                         reload)
+
+
+@functools.lru_cache(maxsize=None)
+def generic_scal_plan(B, D, H, W, F, G, h, runs=None, sets=None, nbuf=None,
+                      reload=None):
+    """Geometry of one launch of csrc/stencil_attention_generic.cu's
+    statistics pass: phi and g staged as the forward stages them, chosen
+    as generic_fwd_plan chooses with GENERIC_RUNS["scal"] and
+    GENERIC_SETS["scal"]."""
+    return _generic_plan("scal", B, D, H, W, F, G, h, runs, sets, nbuf,
                          reload)
 
 
@@ -581,18 +595,25 @@ def stencil_attention_scal(theta, phi, g, ybar, offsets=KERNEL_OFFSETS):
 def stencil_attention_scal_generic(theta, phi, g, ybar, offsets):
     """Kernel wrapper of stencil_attention_scal_plain on any stencil and
     widths of generic_takes: CUDA tensors launch
-    csrc/stencil_attention_generic.cu's statistics pass (else raise); CPU
-    tensors take the plain version."""
+    csrc/stencil_attention_generic.cu's plane-ring statistics pass on
+    generic_scal_plan (else raise), widths that are not a multiple of 4
+    zero-padded to one (a zero channel changes neither a logit nor u);
+    CPU tensors take the plain version."""
     if not theta.is_cuda:
         return stencil_attention_scal_plain(theta, phi, g, ybar, offsets)
     (B, D, H, W), F, G = _check_generic(
         "stencil_attention_scal_generic", offsets, (theta, phi), (g, ybar))
     scal = torch.empty((B, D, H, W, 4), dtype=torch.float32,
                        device=theta.device)
+    if scal.numel() == 0:
+        return scal
+    plan = generic_scal_plan(B, D, H, W, F, G, generic_halo(offsets))
+    theta, phi, g, ybar = (_pad4(t) for t in (theta, phi, g, ybar))
     offs, K = _offsets_arg(offsets)
     _build.launch("stencil_attention_scal_generic_f32", theta.data_ptr(),
                   phi.data_ptr(), g.data_ptr(), ybar.data_ptr(),
-                  scal.data_ptr(), B, D, H, W, F, G, offs, K)
+                  scal.data_ptr(), B, D, H, W, theta.shape[-1], g.shape[-1],
+                  offs, K, _args(plan["args"]))
     stencil_attention_scal_generic.launches += 1
     return scal
 

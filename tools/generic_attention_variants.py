@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Times of the generic stencil-attention forward and gradient pass
-(csrc/stencil_attention_generic.cu, csrc/stencil_attention_generic_bwd.cu)
-at variant A's shapes (chip_smoke.VARIANT_A: k = 5, connectivity 2, self
-loop, 98 offsets, F = 16, G = 4, all at 64^3: the forward at batch 10 for
-a training step and 5 for a scan, the gradient pass at batch 10), for
-variants of the source and of the tile plan, on one NVIDIA GPU.
+"""Times of the generic stencil-attention forward, statistics pass and
+gradient pass (csrc/stencil_attention_generic.cu,
+csrc/stencil_attention_generic_bwd.cu) at variant A's shapes
+(chip_smoke.VARIANT_A: k = 5, connectivity 2, self loop, 98 offsets, F =
+16, G = 4, all at 64^3: the forward at batch 10 for a training step and 5
+for a scan, the statistics pass at batch 10 and 2, the gradient pass at
+batch 10), for variants of the source and of the tile plan, on one
+NVIDIA GPU.
 
     python3 tools/generic_attention_variants.py [--parent DIR] [--quick]
                                                 [--variants a,b] [--step]
@@ -14,7 +16,8 @@ checkout is never changed) that builds its own kernels:
 
 - sound: the tree as it is;
 - unroll1, unroll2: every edge loop unrolled by 1 or by 2 (the tree:
-  the forward's by 1, the gradient pass's by 2; FWD_UNROLL, BWD_UNROLL);
+  the forward's and the statistics pass's by 1, the gradient pass's by
+  2; FWD_UNROLL, SCAL_UNROLL, BWD_UNROLL);
 - regs96, regs80: the launch bound at 320 threads and two blocks an SM
   (a thread's registers <= 96) or 256 threads and three (<= 80), with
   the plans' thread limit;
@@ -22,11 +25,14 @@ checkout is never changed) that builds its own kernels:
   results are wrong): the forward without its exponentials, reading
   every edge from the voxel's own slot, without the offsets with dz !=
   0 (the planes still staged), without any edge (the ring, the centre
-  rows and the stores only).
+  rows and the stores only);
+- scal_noexp, scal_samerow, scal_nodz, scal_noedges (timing only): the
+  same four of the statistics pass.
 
 Per variant and launch also other tiles (planes, rows and columns a
 tile), set counts and ring depths than the plan's (generic_fwd_plan /
-generic_bwd_plan with `runs`, `sets`, `nbuf`), and the gradient pass's time
+generic_scal_plan / generic_bwd_plan with `runs`, `sets`, `nbuf`), and
+the gradient pass's time
 split into its +o and -o kernels (torch.profiler).
 
 `--parent DIR` adds, first and last (parent, variants, parent), the
@@ -70,35 +76,53 @@ def bounds(threads, blocks):
             (PY, MAXT, MAXT.replace("512", str(threads)))]
 
 
-UNROLL = "constexpr int FWD_UNROLL = 1, BWD_UNROLL = 2;"
+UNROLL = "constexpr int FWD_UNROLL = 1, BWD_UNROLL = 2, SCAL_UNROLL = 1;"
+
+
+def timing_only(kernel):
+    """Edits of the forward's or the statistics pass's edge loop (both in
+    SAG, named by their kernel) that show where its time goes: without
+    its exponentials, reading every edge from the voxel's own slot,
+    without the offsets with dz != 0, without any edge."""
+    return {
+        "noexp": [
+            (SAG, "          const float sc = __expf(m - mn);",
+             "          const float sc = 1.f;", kernel),
+            (SAG, "          const float e = ok ? __expf(l - mn) : 0.f;",
+             "          const float e = ok ? l : 0.f;", kernel)],
+        "samerow": [
+            (SAG, "          const int idx = ok ? at + o.y * ncols + o.z : "
+             "at;", "          const int idx = at;", kernel)],
+        "nodz": [
+            (SAG, "      if (!sg::step_reads(st, z, d, 1, D)) continue;",
+             "      if (d != 0 || !sg::step_reads(st, z, d, 1, D)) "
+             "continue;", kernel)],
+        "noedges": [
+            (SAG, "      if (th.active) {\n        if (inner)",
+             "      if (false) {\n        if (inner)", kernel)],
+    }
+
+
 VARIANTS = {
     "sound": [],
     "unroll1": [(RING, UNROLL, UNROLL.replace("BWD_UNROLL = 2",
                                               "BWD_UNROLL = 1"))],
-    "unroll2": [(RING, UNROLL, UNROLL.replace("FWD_UNROLL = 1",
-                                              "FWD_UNROLL = 2"))],
+    "unroll2": [(RING, UNROLL, UNROLL.replace(
+        "FWD_UNROLL = 1", "FWD_UNROLL = 2").replace("SCAL_UNROLL = 1",
+                                                    "SCAL_UNROLL = 2"))],
     "regs96": bounds(320, 2),
     "regs80": bounds(256, 3),
-    # timing only (the results are wrong): where the forward's time goes
-    "fwd_noexp": [
-        (SAG, "          const float sc = __expf(m - mn);",
-         "          const float sc = 1.f;"),
-        (SAG, "          const float e = ok ? __expf(l - mn) : 0.f;",
-         "          const float e = ok ? l : 0.f;")],
-    "fwd_samerow": [
-        (SAG, "          const int idx = ok ? at + o.y * ncols + o.z : at;",
-         "          const int idx = at;")],
-    "fwd_nodz": [
-        (SAG, "      if (!sg::step_reads(st, z, d, 1, D)) continue;",
-         "      if (d != 0 || !sg::step_reads(st, z, d, 1, D)) continue;")],
-    "fwd_noedges": [
-        (SAG, "      if (th.active) {\n        if (inner)",
-         "      if (false) {\n        if (inner)")],
 }
+# timing only (the results are wrong): where each pass's time goes
+for _kind, _kernel in (("fwd", "stencil_attention_generic_kernel"),
+                       ("scal", "stencil_attention_scal_generic_kernel")):
+    for _name, _edits in timing_only(_kernel).items():
+        VARIANTS[f"{_kind}_{_name}"] = _edits
 # variants whose results are wrong: timed, not checked, not swept
-TIMING_ONLY = {"fwd_noexp", "fwd_samerow", "fwd_nodz", "fwd_noedges"}
+TIMING_ONLY = {n for n in VARIANTS if n.startswith(("fwd_", "scal_"))}
 # (pass, batch) of variant A's generic launches, all at 64^3
-LAUNCHES = [("fwd", 10), ("fwd", 5), ("bwd", 10)]
+LAUNCHES = [("fwd", 10), ("fwd", 5), ("scal", 10), ("scal", 2),
+            ("bwd", 10)]
 EDGE, F, G = 64, 16, 4
 # (planes, rows, columns) and sets timed beside the plan's own
 TILES = [(16, 8, 8), (32, 8, 8), (32, 4, 8), (16, 4, 16), (32, 4, 16),
@@ -153,6 +177,10 @@ def measure(parent, sweep, timing_only=False, step=False):
             args = (th, ph, g, offs)
             fn, plain = wa.stencil_attention_generic, \
                 wa.stencil_attention_plain
+        elif kind == "scal":
+            args = (th, ph, g, yb, offs)
+            fn, plain = wa.stencil_attention_scal_generic, \
+                wa.stencil_attention_scal_plain
         else:
             args = (th, ph, g, yb,
                     wa.stencil_attention_scal_plain(th, ph, g, yb, offs),
@@ -168,8 +196,7 @@ def measure(parent, sweep, timing_only=False, step=False):
             got = fn(*args)
             got = got if isinstance(got, tuple) else (got,)
             torch.cuda.synchronize()
-            err = max((a - b).abs().max().item() / b.abs().max().item()
-                      for a, b in zip(got, want))
+            err = worst(kind, got, want)
             del got
             ms = cs.cuda_ms(lambda: [fn(*args) for _ in range(REPEAT)]) \
                 / REPEAT
@@ -186,6 +213,16 @@ def measure(parent, sweep, timing_only=False, step=False):
         torch.cuda.empty_cache()
     if step:
         step_times()
+
+
+def worst(kind, got, want):
+    """The largest error of a pass's outputs, each over its own largest
+    value; the statistics' four channels (r, m, denom, c) each on its
+    own."""
+    if kind == "scal":
+        got, want = got[0].unbind(-1), want[0].unbind(-1)
+    return max((a - b).abs().max().item() / b.abs().max().item()
+               for a, b in zip(got, want))
 
 
 def split(fn, args):
@@ -218,9 +255,11 @@ def tiles(wa, cs, kind, B, args, want, bound_ms):
     offs, K = wa._offsets_arg(args[-1])
     outs = tuple(torch.empty_like(w) for w in want)
     ptrs = [t.data_ptr() for t in args[:-1] + outs]
-    entry = "stencil_attention_generic_f32" if kind == "fwd" \
-        else "stencil_attention_bwd_generic_f32"
-    plan_of = wa.generic_fwd_plan if kind == "fwd" else wa.generic_bwd_plan
+    entry, plan_of = {
+        "fwd": ("stencil_attention_generic_f32", wa.generic_fwd_plan),
+        "scal": ("stencil_attention_scal_generic_f32", wa.generic_scal_plan),
+        "bwd": ("stencil_attention_bwd_generic_f32", wa.generic_bwd_plan),
+    }[kind]
     seen = set()
     for runs, sets, extra in itertools.product(TILES, SETS, EXTRA):
         try:
@@ -237,12 +276,11 @@ def tiles(wa, cs, kind, B, args, want, bound_ms):
                           K, wa._args(p["args"]))
         launch()
         torch.cuda.synchronize()
-        err = max((a - b).abs().max().item() / b.abs().max().item()
-                  for a, b in zip(outs, want))
+        err = worst(kind, outs, want)
         ms = cs.cuda_ms(lambda: [launch() for _ in range(REPEAT)]) \
             / REPEAT
-        smem = p["smem"] if kind == "fwd" else \
-            (p["plus"]["smem"], p["minus"]["smem"])
+        smem = (p["plus"]["smem"], p["minus"]["smem"]) if kind == "bwd" \
+            else p["smem"]
         print(f"#   {kind} {B}x{EDGE}^3 tile {runs} sets {sets} nbuf "
               f"+{extra}: smem "
               f"{smem}; ms {ms:.4f} ({100 * bound_ms / ms:.1f}%); "

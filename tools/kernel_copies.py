@@ -5,6 +5,7 @@ touching the checkout: each copy builds its own kernels with its own
 dram_tpu_torch/kernels/_build.py."""
 
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -13,25 +14,43 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join("dram_tpu_torch", "kernels", "csrc")
 
 
+def kernel_span(text, kernel):
+    """(start, end) of __global__ function `kernel` in a CUDA source: from
+    its __global__ to the next one (or the end of the file)."""
+    starts = [m for m in re.finditer(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+        text)]
+    hits = [k for k, m in enumerate(starts) if m.group(1) == kernel]
+    if len(hits) != 1:
+        raise SystemExit(f"kernel {kernel} not defined once")
+    k = hits[0]
+    end = starts[k + 1].start() if k + 1 < len(starts) else len(text)
+    return starts[k].start(), end
+
+
 def make_copy(tmp, name, edits, root=ROOT):
     """dram_tpu_torch/ and chip_smoke.py of `root` (the checkout, or an
     unpacked archive of another commit) copied to tmp/name, with `edits`
-    applied to the copy: (file, text, its replacement) each, the text
-    found exactly once; a file name is one of csrc/, a path with a "/"
-    one of dram_tpu_torch/. Returns the copy's directory."""
+    applied to the copy: (file, text, its replacement[, kernel]) each,
+    the text found exactly once in the file or, where a __global__
+    function `kernel` is named, in that kernel (kernel_span); a file name
+    is one of csrc/, a path with a "/" one of dram_tpu_torch/. Returns
+    the copy's directory."""
     d = os.path.join(tmp, name)
     shutil.copytree(os.path.join(root, "dram_tpu_torch"),
                     os.path.join(d, "dram_tpu_torch"),
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     shutil.copy(os.path.join(root, "chip_smoke.py"), d)
-    for src, old, new in edits:
+    for src, old, new, *kernel in edits:
         path = os.path.join(d, "dram_tpu_torch", src) if "/" in src \
             else os.path.join(d, CSRC, src)
         text = open(path).read()
-        if text.count(old) != 1:
-            raise SystemExit(f"{name}: text not found once in {src}")
+        lo, hi = kernel_span(text, kernel[0]) if kernel else (0, len(text))
+        if text.count(old, lo, hi) != 1:
+            raise SystemExit(f"{name}: text not found once in {src}"
+                             + (f" ({kernel[0]})" if kernel else ""))
         with open(path, "w") as fp:
-            fp.write(text.replace(old, new))
+            fp.write(text[:lo] + text[lo:hi].replace(old, new) + text[hi:])
     return d
 
 

@@ -73,14 +73,25 @@ generic kernels, from the trained backbone):
 - dphi_plus: the gradient pass's -o side gathers dphi and dg over i = j +
   o instead of j - o (right on a symmetric stencil, wrong on k = 5's);
 - fwd_drop_last: the forward skips the stencil's last offset;
-- halo_stale: the producer of every generic plane ring never stages a
-  tile's first halo plane below the tile; its buffer holds the tile's
-  first plane instead (the dz = -h taps of that plane read a wrong
-  plane);
+- halo_stale: the producer of every generic plane ring (forward,
+  statistics pass, both gradient sides) never stages a tile's first halo
+  plane below the tile; its buffer holds the tile's first plane instead
+  (the dz = -h taps of that plane read a wrong plane);
 - last_col: every generic plane-ring kernel leaves each tile's last
   column uncomputed;
 - no_rescale: the forward's online softmax never rescales its
-  denominator and accumulators when the running maximum grows.
+  denominator and accumulators when the running maximum grows;
+- scal_num_stale: the statistics pass rescales its denominator but not
+  its numerator sum e u when the running maximum grows;
+- scal_deg_k: the statistics pass takes the degree as K everywhere (r
+  wrong near the faces);
+- scal_c_undiv: the statistics pass writes c undivided by the
+  denominator;
+- scal_drop_last: the statistics pass skips the stencil's last offset.
+
+Each edit of csrc/stencil_attention_generic.cu names the kernel it
+changes, the forward or the statistics pass; the ring header's edits
+change every generic plane-ring kernel.
 
 With --variant-b (variant B: 'in' norms, PReLU, dropout, AdamW with a
 group, IntRegAffRefineLoss; its stacks on the unfused conv kernels) each
@@ -189,14 +200,19 @@ GOLDEN_VARIANTS = {
 SAG = "stencil_attention_generic.cu"
 SAB = "stencil_attention_generic_bwd.cu"
 RING = "stencil_generic_ring.cuh"
+# the generic forward and statistics pass (both in SAG): an edit names its
+# kernel (tools/kernel_copies.py:make_copy)
+FWD_K = "stencil_attention_generic_kernel"
+SCAL_K = "stencil_attention_scal_generic_kernel"
 EDGE_LOOP = ("        for (int k = st.start[d + sg::MAX_HALO];\n"
              "             k < st.start[d + sg::MAX_HALO + 1]; ++k) {")
+DROP_LAST = EDGE_LOOP.replace(
+    "k < st.start[d + sg::MAX_HALO + 1];",
+    "k < min(st.start[d + sg::MAX_HALO + 1], st.k - 1);")
 GENERIC_VARIANTS = {
     "sound": None,
     "dphi_plus": (SAB, "  const int sgn = -1;", "  const int sgn = 1;"),
-    "fwd_drop_last": (SAG, EDGE_LOOP, EDGE_LOOP.replace(
-        "k < st.start[d + sg::MAX_HALO + 1];",
-        "k < min(st.start[d + sg::MAX_HALO + 1], st.k - 1);")),
+    "fwd_drop_last": (SAG, EDGE_LOOP, DROP_LAST, FWD_K),
     "halo_stale": (RING, "    for (int pl = t.pz0; pl <= t.pz1; ++pl) "
                    "next(pl);", "    for (int pl = t.pz0; pl <= t.pz1; ++pl) "
                    "next(pl == t.pz0 && pl < t.za ? t.za : pl);"),
@@ -204,7 +220,14 @@ GENERIC_VARIANTS = {
                  "th.x < t.xb;", "  th.active = vi < p.yr * p.xr && "
                  "th.y < t.yb && th.x < t.xb - 1;"),
     "no_rescale": (SAG, "          const float sc = __expf(m - mn);",
-                   "          const float sc = 1.f;"),
+                   "          const float sc = 1.f;", FWD_K),
+    "scal_num_stale": (SAG, "          num = fmaf(e, u, num * sc);",
+                       "          num = fmaf(e, u, num);", SCAL_K),
+    "scal_deg_k": (SAG, "      r = sg::rsqrt_degree(st, z, th.y, th.x, D, H, "
+                   "W, h);", "      r = rsqrtf((float)st.k);", SCAL_K),
+    "scal_c_undiv": (SAG, "make_float4(r, m, den, num / fmaxf(den, 1e-12f))",
+                     "make_float4(r, m, den, num)", SCAL_K),
+    "scal_drop_last": (SAG, EDGE_LOOP, DROP_LAST, SCAL_K),
 }
 VARIANT_B_VARIANTS = {"sound": None, "dw64": DW64}
 C1 = "conv3x3x3_c1.cu"

@@ -68,8 +68,9 @@ traceback and a non-zero exit:
    bitwise (post: the same scan prepped without the vessel mask).
    engine host-stitch: USE_FAST_INFERENCE = False on that scan (each
    lobe alone, batch 1) with the kernels and with the plain versions:
-   Dice >= 0.995 and the same Otsu bin; every kernel launch of the first
-   lobe's forward against its plain version.
+   Dice >= 0.995 and the same Otsu bin; every kernel launch of every
+   lobe's forward against its plain version, every pool against
+   F.max_pool3d's floor windows.
 11b. the C++ host prep and the scan wires (after 10's golden, before
    11): host prep prints the g++ build of phase 2 (its version, the
    host CPU's model and which AVX-512 paths were compiled in), times the C++ and NumPy preps on the scan of 4 and on a
@@ -142,7 +143,11 @@ traceback and a non-zero exit:
    tr_data_time and tr_batch_time (s a step), steps / s, the validation's
    prep and process_chunks_val ms, the checkpoint's save ms, peak MiB;
    the digest of epoch 0's sampled chunk uids beside EPOCH_UIDS_SHA256
-   (not a gate).
+   (not a gate). Epoch 0 runs under PROFILE_DIR (PROFILE_EPOCH = 0):
+   exactly one torch.profiler trace, which parses as JSON and holds CUDA
+   events of the conv and attention kernels under their symbol names;
+   the card's busy share of the profiled span is printed (a finding).
+   Epoch 1 is not profiled.
 17. train val paths: a runner reloaded from the trained tree validates
    by the fast path and by the host-stitch loop (batch-1 forwards): the
    same label and ratios within VAL_RATIO_RTOL (placed between sound and
@@ -223,6 +228,19 @@ traceback and a non-zero exit:
    (bf16, trained weights) on 2 x 160 x 80 x 80 in 4 tiles of halo 48,
    each rank its share of the windows, against the unsharded forward
    (2^-7 of the largest; path overlap_tile).
+26. engine resample mode (after 11's host-stitch phase): the host-stitch
+   engine phase again with RESAMPLE_MODE "inplane_resolution_z_spacing"
+   (RESAMPLE_SPACING (0.7, 1, 1), RESAMPLE_SIZE 80^3): each lobe at its
+   own grid (64 or 71 planes of 80 x 80), the grids printed; the same
+   gates, every launch of every lobe held against its plain version;
+   counts zeroed just before the kernel run, read just after (path
+   engine_ragged).
+27. resample interpolators (after 26): itk_resample3d on the card for
+   each ITK_METHODS name (linear, nearest, bspline, gaussian and the
+   four windowed sincs) and 'label_gaussian', the scan of 4 to 1 mm iso,
+   against the host twin itk_resample3d_np (max abs error <= 1e-5 of
+   max |x|; labels equal), each axis's weights against an independent
+   float64 evaluation of the kernel; card and host ms of each.
 
 Prints a `{"kernels": [...]}` JSON line and, last, the device line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before it.
@@ -249,8 +267,10 @@ import torch.nn.functional as F
 from dram_tpu_torch import golden, native, weights
 from dram_tpu_torch.configs import (get_callable_by_name, st_dram_ref,
                                     st_dram_ref_att, with_settings)
-from dram_tpu_torch.core import mesh
+from dram_tpu_torch.core import mesh, resample
 from dram_tpu_torch.core.ops import binary_cam_np
+from dram_tpu_torch.core.resample import (ITK_METHODS, itk_resample3d,
+                                          itk_resample3d_np)
 from dram_tpu_torch.data.datasets import RadboudCOVIDLobeVesselChunk
 from dram_tpu_torch.data.hostprep import prep_scan
 from dram_tpu_torch.data.io import read_mha, write_mha
@@ -263,6 +283,7 @@ from dram_tpu_torch.losses.refine import pseudo_labels
 from dram_tpu_torch.kernels import (_build, conv3d, conv_stack, pool,
                                     upsample, window_attention)
 from dram_tpu_torch.models import DC3D, DC3DATGeneric
+from dram_tpu_torch.models.blocks import ConvPoolBlock5d
 from dram_tpu_torch.train import train_steps
 from dram_tpu_torch.train.__main__ import main as train_main
 from dram_tpu_torch.train.checkpoint import (load_checkpoint,
@@ -289,7 +310,8 @@ LIMITS = {"card": 30, "build": 180, "kernel": 60, "weights": 60,
           "train_geo_plain": 240, "train_variant_b": 300,
           "train_variant_b_plain": 300, "variant_b_epochs": 420,
           "engine_shard": 300, "train_dp": 420, "train_dp_pad": 120,
-          "pcm_sharded": 240, "overlap_tile": 60}
+          "pcm_sharded": 240, "overlap_tile": 60,
+          "engine_resample_mode": 300, "resample_interpolators": 60}
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor-core
 # and f32 CUDA-core flop/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -1565,6 +1587,8 @@ PATHS["variant_b_resume"] = PATHS["train_variant_b"]
 # sharded PCM its plain path (z0 != 0, as dram_tpu dispatches)
 PATHS["train_dp"] = PATHS["train_att"]
 PATHS["engine_shard"] = PATHS["engine"]
+# the host-stitch engine at a ragged per-lobe grid (RAGGED_MODE)
+PATHS["engine_ragged"] = PATHS["engine"]
 PATHS["overlap_tile"] = ("conv3x3x3", "conv3x3x3_c1", "maxpool2")
 PATHS["pcm_sharded"] = ()
 FORWARD_LAUNCHES = {"conv3x3x3": 13, "conv3x3x3_c1": 1, "maxpool2": 3,
@@ -2451,45 +2475,106 @@ def engine_deploy_phase(root, ckpt, deploy, pipe, heat_run, card):
 
 @contextlib.contextmanager
 def recorded_forward(names):
-    """Record the arguments of the kernel launches of `names` up to and
-    including the first stencil attention (one batch-1 forward of the
-    host-stitch path); the kernels run as usual. Yields the list of
-    (name, args, kwargs)."""
+    """Record the arguments of every kernel launch of `names` (the
+    kernels run as usual) and yield the list of (name, args, kwargs).
+    The wrappers' launch counters, which count on the recorder while it
+    stands in, are added to the wrappers' own on exit."""
     calls, saved = [], {k: getattr(*WRAPPERS[k]) for k in names}
+    recs = {}
 
     def recorder(k):
         def rec(*args, **kw):
-            if not any(c[0] == "stencil_attention" for c in calls):
-                calls.append((k, [a.clone() if torch.is_tensor(a) else a
-                                  for a in args],
-                              {n: v.clone() if torch.is_tensor(v) else v
-                               for n, v in kw.items()}))
+            calls.append((k, [a.clone() if torch.is_tensor(a) else a
+                              for a in args],
+                          {n: v.clone() if torch.is_tensor(v) else v
+                           for n, v in kw.items()}))
             return saved[k](*args, **kw)
         rec.launches = 0  # the kernel's counter, looked up by its name
         return rec
     for k in names:
-        setattr(*WRAPPERS[k], recorder(k))
+        recs[k] = recorder(k)
+        setattr(*WRAPPERS[k], recs[k])
     try:
         yield calls
     finally:
         for k in names:
             setattr(*WRAPPERS[k], saved[k])
+            saved[k].launches += recs[k].launches
 
 
-def engine_stitch_phase(root, ckpt, deploy, card):
+def lobe_forwards(calls):
+    """The recorded launches split into one list per batch-1 forward:
+    each forward starts at its entry conv, the conv of a one-channel
+    input (conv3x3x3, whose wrapper launches conv3x3x3_c1 within)."""
+    def entry(c):
+        return c[0].startswith("conv3x3x3") and c[1][0].shape[-1] == 1
+    forwards = []
+    for c in calls:
+        if entry(c) and not (forwards and entry(forwards[-1][-1])):
+            forwards.append([])
+        if not forwards:
+            fail("engine host-stitch: a launch before the first entry conv")
+        forwards[-1].append(c)
+    return forwards
+
+
+@contextlib.contextmanager
+def pool_crop_checks(model):
+    """Hold every ConvPoolBlock5d's pooled output against F.max_pool3d on
+    its uncropped features (floor mode: an odd extent's last plane, row
+    or column dropped, as the JAX package's VALID windows drop it), bit
+    for bit. Yields the list of the pooled input extents seen."""
+    seen, handles = [], []
+
+    def check(module, inputs, outputs):
+        y, pooled = outputs
+        want = F.max_pool3d(y.permute(0, 4, 1, 2, 3), 2, 2) \
+            .permute(0, 2, 3, 4, 1)
+        seen.append(tuple(y.shape[1:4]))
+        if pooled.shape != want.shape or not torch.equal(pooled, want):
+            fail(f"engine host-stitch: the pool of {tuple(y.shape)} "
+                 "differs from F.max_pool3d's floor windows")
+    for m in model.modules():
+        if isinstance(m, ConvPoolBlock5d):
+            handles.append(m.register_forward_hook(check))
+    try:
+        yield seen
+    finally:
+        for h in handles:
+            h.remove()
+
+
+# the ragged host-stitch run: each lobe resampled to RAGGED_Z mm in z and
+# the model's 80 x 80 in plane (RESAMPLE_MODE
+# "inplane_resolution_z_spacing"): the deployment scan's lobe crops (45
+# and 50 planes at the 1 mm test grid) come out 64 and 71 planes deep
+RAGGED_MODE = "inplane_resolution_z_spacing"
+RAGGED_Z = 0.7
+
+
+def engine_stitch_phase(root, ckpt, deploy, card, resample_mode=None):
     """USE_FAST_INFERENCE = False on the deployment scan: the host-stitch
     path runs each lobe alone, batch 1; its masks with the kernels and
     with the plain versions agree (Dice >= 0.995, the same Otsu bin of
-    the stitched heatmap); each forward kernel launch of the first
-    lobe's forward is held against its plain version."""
+    the stitched heatmap); every forward kernel launch of every lobe's
+    forward is held against its plain version, and every pool against
+    F.max_pool3d's floor windows. With `resample_mode` (RAGGED_MODE) each
+    lobe's grid is (round(depth / RAGGED_Z), 80, 80): the grids are
+    printed, none may be 80 deep and one must be odd; returns the launch
+    counts of that run (path engine_ragged, zeroed just before)."""
     ct, lobes, uid = deploy
     names = PATHS["engine"]
-    runs = {}
+    extra = {} if resample_mode is None else dict(
+        RESAMPLE_MODE=resample_mode, RESAMPLE_SPACING=(RAGGED_Z, 1.0, 1.0),
+        RESAMPLE_SIZE=(80, 80, 80))
+    tag = "engine host-stitch" + ("" if resample_mode is None
+                                  else f" {resample_mode}")
+    runs, counts = {}, None
     for label in ("kernels", "plain versions"):
         settings = engine_settings(root, USE_FAST_INFERENCE=False,
-                                   RELOAD_CHECKPOINT_PATH=ckpt)
+                                   RELOAD_CHECKPOINT_PATH=ckpt, **extra)
         eng = LesionSegTest(settings, scan_path=ct, lobe_path=lobes,
-                            output_path=f"{root}/stitch {label}",
+                            output_path=f"{root}/{tag} {label}",
                             device="cuda")
         stitched = {}
         process_scan = eng.process_scan
@@ -2500,49 +2585,187 @@ def engine_stitch_phase(root, ckpt, deploy, card):
             _out["threshold"] = binary_cam_np(out["heatmap"][lung])[1]
             return out
         eng.process_scan = keep
-        ctx = plain_versions() if label == "plain versions" \
-            else recorded_forward(names)
-        with ctx as calls:
-            rows = eng.run()
+        if label == "plain versions":
+            with plain_versions():
+                rows = eng.run()
+        else:
+            zero_counts()
+            with recorded_forward(names) as calls, \
+                    pool_crop_checks(eng.model) as pooled:
+                rows = eng.run()
+            torch.cuda.synchronize()
+            if resample_mode is not None:
+                counts = path_counts("engine_ragged")
         torch.cuda.synchronize()
         if len(rows) != 1:
-            fail(f"engine host-stitch ({label}): {len(rows)} scans archived")
-        print_scan_times(eng, f"host-stitch {label}", card)
-        task = f"{root}/stitch {label}/test"
+            fail(f"{tag} ({label}): {len(rows)} scans archived")
+        print_scan_times(eng, f"{tag[len('engine '):]} {label}", card)
+        task = f"{root}/{tag} {label}/test"
         runs[label] = {k: read_mha(f"{task}/{sub}{uid}.mha")["array"]
                        for k, sub in (("pred", ""), ("post", "post/"))}
         runs[label]["threshold"] = stitched["threshold"]
-        if label == "kernels":
-            launches = {k: sum(c[0] == k for c in calls) for k in names}
-            print(f"# engine host-stitch: first lobe's batch-1 forward "
-                  f"launched {launches}", flush=True)
-            if min(launches.values()) == 0 or calls[0][1][0].shape[0] != 1:
-                fail(f"engine host-stitch: not one batch-1 forward on the "
-                     f"kernels ({launches})")
-            for k, args, kw in calls:
-                mod, attr = WRAPPERS[k]
-                with torch.no_grad():  # conv3x3x3_c1 returns (y, None)
-                    y = _outputs(getattr(mod, attr)(*args, **kw))[0]
-                    yp = _outputs(getattr(mod, attr + "_plain")(*args,
-                                                                **kw))[0]
-                err = (y.float() - yp.float()).abs().max().item()
-                allowed = FORWARD_TOL[k](yp.float())
-                if not err <= allowed:
-                    fail(f"engine host-stitch: {k} at {tuple(args[0].shape)}"
-                         f" disagrees with its plain version ({err:.3g} > "
-                         f"{allowed:.3g})")
-            print(f"# engine host-stitch: each of the {len(calls)} launches "
-                  "agrees with its plain version at batch 1", flush=True)
+        if label != "kernels":
+            continue
+        forwards = lobe_forwards(calls)
+        grids = [tuple(f[0][1][0].shape[1:4]) for f in forwards]
+        print(f"# {tag}: {len(forwards)} lobe forwards at grids {grids}; "
+              f"pools of {sorted(set(pooled))} held against F.max_pool3d",
+              flush=True)
+        for i, f in enumerate(forwards):
+            launched = {k: sum(c[0] == k for c in f) for k in names}
+            if min(launched.values()) == 0 or f[0][1][0].shape[0] != 1:
+                fail(f"{tag}: lobe {i}'s forward is not one batch-1 "
+                     f"forward on the kernels ({launched})")
+        if len(forwards) != 5:
+            fail(f"{tag}: {len(forwards)} lobe forwards, not 5")
+        if resample_mode is not None and (
+                any(g[0] == 80 for g in grids)
+                or not any(g[0] % 2 for g in grids)):
+            fail(f"{tag}: lobe grids {grids} (none may be 80 deep, one "
+                 "must be odd)")
+        worst = {}
+        for k, args, kw in calls:
+            mod, attr = WRAPPERS[k]
+            with torch.no_grad():  # conv3x3x3_c1 returns (y, None)
+                y = _outputs(getattr(mod, attr)(*args, **kw))[0]
+                yp = _outputs(getattr(mod, attr + "_plain")(*args, **kw))[0]
+            err = (y.float() - yp.float()).abs().max().item()
+            allowed = FORWARD_TOL[k](yp.float())
+            if not err <= allowed:
+                fail(f"{tag}: {k} at {tuple(args[0].shape)} disagrees with "
+                     f"its plain version ({err:.3g} > {allowed:.3g})")
+            worst[k] = max(worst.get(k, 0.0), err / allowed if allowed
+                           else err)
+        print(f"# {tag}: each of the {len(calls)} launches of the "
+              f"{len(forwards)} lobes agrees with its plain version at "
+              f"batch 1 (worst error / limit by kernel "
+              f"{ {k: round(v, 4) for k, v in worst.items()} })",
+              flush=True)
+        del calls, forwards
+        torch.cuda.empty_cache()
     k, p = runs["kernels"], runs["plain versions"]
     d_pred, d_post = dice(k["pred"], p["pred"]), dice(k["post"], p["post"])
     bins = [round(r["threshold"] * 255) for r in (k, p)]
-    print(f"# engine host-stitch: kernels vs plain versions: dice pred "
-          f"{d_pred:.6f} post {d_post:.6f}, otsu bins {bins}, pred voxels "
+    print(f"# {tag}: kernels vs plain versions: dice pred {d_pred:.6f} "
+          f"post {d_post:.6f}, otsu bins {bins}, pred voxels "
           f"{int(k['pred'].sum())}", flush=True)
     if d_pred < 0.995 or d_post < 0.995 or bins[0] != bins[1] \
             or not k["pred"].any():
-        fail("engine host-stitch: the kernel and plain runs disagree")
+        fail(f"{tag}: the kernel and plain runs disagree")
+    return counts
 
+
+# --- the ITK interpolators on the card ------------------------------------
+
+# the deployment scan resampled to 1 mm iso on the card (itk_resample3d,
+# torch.matmul in f32) against the host twin (itk_resample3d_np, numpy f32
+# matmuls): max abs error <= INTERP_REL * max |x|; label_gaussian's labels
+# equal. Beside it each axis's weight matrix is held against an
+# independent float64 evaluation of its kernel (scipy's B-spline prefilter
+# for 'bspline') at INTERP_WEIGHT_ATOL: the card-vs-twin check shares the
+# weights, so only this check sees a broken kernel (PERF.md, the
+# interpolator gate's readings)
+INTERP_REL = 1e-5
+INTERP_WEIGHT_ATOL = 1e-6
+
+
+def reference_weights(n_in, n_out, method, scale):
+    """(n_out, n_in) float64 weights of `method` on the ITK grid (src =
+    i * scale clipped to [0, n_in - 1], outputs outside [-0.5, n_in -
+    0.5) zero), evaluated from each kernel's closed form: the windowed
+    sincs over the six taps floor(src) - 2 .. floor(src) + 3 clamped to
+    the edge, the Gaussian (sigma 1) as erf differences over the taps
+    floor(src) - 4 .. floor(src) + 5 normalised, the cubic B-spline on
+    scipy's mirror-mode prefilter (spline_filter1d)."""
+    from math import erf
+    src_raw = np.arange(n_out) * scale
+    valid = (src_raw >= -0.5) & (src_raw < n_in - 0.5)
+    src = np.clip(src_raw, 0.0, n_in - 1)
+    W = np.zeros((n_out, n_in))
+    windows = {"hamming_sinc": lambda t: 0.54 + 0.46 * np.cos(np.pi * t / 3),
+               "cosine_windowed_sinc": lambda t: np.cos(np.pi * t / 6),
+               "welch_windowed_sinc": lambda t: 1.0 - t * t / 9,
+               "lanczos_windowed_sinc": lambda t: np.sinc(t / 3)}
+    if method == "bspline":
+        from scipy import ndimage
+        coef = ndimage.spline_filter1d(np.eye(n_in), 3, axis=0,
+                                       mode="mirror")
+    for i in np.nonzero(valid)[0]:
+        b = int(np.floor(src[i]))
+        if method in windows:
+            for j in range(b - 2, b + 4):
+                t = src[i] - j
+                W[i, min(max(j, 0), n_in - 1)] += \
+                    windows[method](t) * np.sinc(t)
+        elif method == "gaussian":
+            for j in range(b - 4, b + 6):
+                d = j - src[i]
+                W[i, min(max(j, 0), n_in - 1)] += 0.5 * (
+                    erf((d + 0.5) / np.sqrt(2)) - erf((d - 0.5) / np.sqrt(2)))
+            W[i] /= W[i].sum()
+        elif method == "bspline":
+            for j in range(b - 1, b + 3):
+                t = abs(src[i] - j)
+                w = 2 / 3 - t * t + t ** 3 / 2 if t < 1 else (2 - t) ** 3 / 6
+                jm = abs(j) if j < n_in else 2 * (n_in - 1) - j
+                W[i] += w * coef[jm]
+        elif method == "linear":
+            lo = int(np.floor(src[i]))
+            f = src[i] - lo
+            W[i, lo] += 1 - f
+            W[i, min(lo + 1, n_in - 1)] += f
+        else:  # nearest, round half up
+            W[i, min(int(np.floor(src_raw[i] + 0.5)), n_in - 1)] = 1.0
+    return W
+
+
+def resample_interpolators_phase(scan, lobe, card):
+    """itk_resample3d on the card for every ITK_METHODS name and
+    'label_gaussian': the deployment scan (and its lobe labels) from
+    SPACING to 1 mm iso, held against the host twin; each axis's weights
+    against reference_weights. Prints the card and host ms of each."""
+    out = tuple(int(np.ceil(n * s)) for n, s in zip(scan.shape, SPACING))
+    scales = [1.0 / s for s in SPACING]
+    x = torch.from_numpy(scan.astype(np.float32)).cuda()
+    lim = INTERP_REL * float(np.abs(scan).max())
+    print(f"# resample interpolators: {scan.shape} at {SPACING} mm -> {out}"
+          f" at 1 mm; torch.backends.cuda.matmul.allow_tf32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}; limit {lim:.4g} "
+          f"({INTERP_REL} of max |x|)", flush=True)
+    for method in ITK_METHODS:
+        werr = max(np.abs(resample._axis_weights(
+            n, o, ITK_METHODS[method], sc)[0] - reference_weights(
+                n, o, method, sc)).max()
+            for n, o, sc in zip(scan.shape, out, scales))
+        card_ms = cuda_ms(lambda: itk_resample3d(x, out, scales, method,
+                                                 -2048.0), reps=3)
+        y = itk_resample3d(x, out, scales, method, -2048.0)
+        t0 = time.perf_counter()
+        want = itk_resample3d_np(scan, out, scales, method, -2048.0)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        err = float(np.abs(y.cpu().numpy() - want).max())
+        print(f"# resample {method}: card {card_ms:.3f} ms, host "
+              f"{host_ms:.1f} ms; max abs error vs host {err:.4g}; weights "
+              f"vs reference {werr:.3g} ({card})", flush=True)
+        if not err <= lim or not werr <= INTERP_WEIGHT_ATOL:
+            fail(f"resample interpolators: {method}: error {err:.4g} "
+                 f"(limit {lim:.4g}), weights {werr:.3g} (limit "
+                 f"{INTERP_WEIGHT_ATOL})")
+    lt = torch.from_numpy(lobe).cuda()
+    t0 = time.perf_counter()
+    got = itk_resample3d(lt, out, scales, "label_gaussian")
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = itk_resample3d_np(lobe, out, scales, "label_gaussian")
+    host_ms = (time.perf_counter() - t0) * 1e3
+    same = got.device.type == "cuda" and np.array_equal(got.cpu().numpy(),
+                                                        want)
+    print(f"# resample label_gaussian: {card_ms:.1f} ms from a card tensor "
+          f"(labels from the data, on the host), host {host_ms:.1f} ms; "
+          f"labels {'equal' if same else 'DIFFERENT'} "
+          f"({np.unique(want).tolist()})", flush=True)
+    if not same:
+        fail("resample interpolators: label_gaussian labels differ")
 
 
 # --- the training epoch loop (python3 -m dram_tpu_torch.train) -----------
@@ -2628,6 +2851,51 @@ def print_epochs(runner, label, card):
             fail(f"{label} epoch {e['epoch']}: losses {e['losses']}")
 
 
+# the kernels whose CUDA events the profiled epoch's trace must hold,
+# under their symbol names (GLOBALS): the conv and the attention kernels
+PROFILED_KERNELS = ("conv3x3x3_wgmma_kernel", "conv3x3x3_dw_wgmma_kernel",
+                    "conv3x3x3_c1_kernel", "stencil_attention_kernel",
+                    "stencil_attention_scal_kernel",
+                    "stencil_attention_bwd_kernel")
+
+
+def profile_readings(prof_dir, runner, card):
+    """PROFILE_DIR of the first epoch: exactly one trace, of epoch 0 (the
+    second epoch unprofiled), that parses as JSON and holds CUDA kernel
+    events of every PROFILED_KERNELS symbol; prints the card's busy share
+    of the profiled span (the union of the kernel events over the span
+    from the first to the last event of the trace: a finding, not a
+    gate)."""
+    files = sorted(os.listdir(prof_dir)) if os.path.isdir(prof_dir) else []
+    traced = [e["epoch"] for e in runner.history if "trace" in e]
+    if files != ["epoch_0_rank_0.trace.json"] or traced != [0]:
+        fail(f"train epochs: profile files {files}, profiled epochs "
+             f"{traced}")
+    path = os.path.join(prof_dir, files[0])
+    with open(path) as fp:
+        events = [e for e in json.load(fp)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    missing = [k for k in PROFILED_KERNELS
+               if not any(k in e["name"] for e in kernels)]
+    if missing:
+        fail(f"train epochs: the trace holds no CUDA events of {missing}")
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in kernels)
+    busy, end = 0.0, -np.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    t0 = min(float(e["ts"]) for e in events)
+    t1 = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    print(f"# train epochs: profile of epoch 0: {files[0]} "
+          f"({os.path.getsize(path) / 2 ** 20:.1f} MiB), {len(kernels)} "
+          f"kernel events; card busy {busy / 1e3:.1f} ms of the profiled "
+          f"{(t1 - t0) / 1e3:.1f} ms ({busy / (t1 - t0):.4f}) ({card})",
+          flush=True)
+
+
 def train_epochs_phase(root, params, batch_stats, card):
     """The CLI's main on the flagship settings (full widths, bf16, batch
     10, 80^3 chunks, four loader threads) over the synthetic dataset,
@@ -2649,7 +2917,8 @@ def train_epochs_phase(root, params, batch_stats, card):
     save_checkpoint(trained, {"model": {"params": params,
                                         "batch_stats": batch_stats},
                               "epoch": 0, "iteration": 0})
-    smp = epoch_settings(root, db, count)
+    smp = epoch_settings(root, db, count, PROFILE_DIR=f"{root}/profile",
+                         PROFILE_EPOCH=0)
     zero_counts()
     t0 = time.perf_counter()
     runner = train_main(["1", str(st_dram_ref_att.OPTIMIZER["lr"]),
@@ -2662,6 +2931,7 @@ def train_epochs_phase(root, params, batch_stats, card):
     print(f"# train epochs: the CLI's main took {wall:.1f} s ({card})",
           flush=True)
     print_epochs(runner, "train epochs", card)
+    profile_readings(f"{root}/profile", runner, card)
     steps = [e["steps"] for e in runner.history]
     if len(steps) != 2 or not all(3 <= n <= 6 for n in steps):
         fail(f"train epochs: steps an epoch {steps}")
@@ -3655,6 +3925,13 @@ def main():
         with phase("engine host-stitch", LIMITS["engine_stitch"]):
             engine_stitch_phase(root, ckpt, deploy, card)
         torch.cuda.empty_cache()
+        with phase("engine resample mode", LIMITS["engine_resample_mode"]):
+            launches["engine_ragged"] = engine_stitch_phase(
+                root, ckpt, deploy, card, resample_mode=RAGGED_MODE)
+        torch.cuda.empty_cache()
+        with phase("resample interpolators",
+                   LIMITS["resample_interpolators"]):
+            resample_interpolators_phase(scan, lobe, card)
         with phase("engine shard", LIMITS["engine_shard"]):
             launches["engine_shard"] = engine_shard_phase(root, card)
     del pipe, model, prepc

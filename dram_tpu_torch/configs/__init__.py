@@ -44,6 +44,12 @@ def get_callable_by_name(name):
     return getattr(importlib.import_module(module_name), attr)
 
 
+def register_alias(name, target):
+    """Make `name` resolve to `target` (a dotted dram_tpu_torch path) in
+    get_callable_by_name."""
+    _ALIASES[name] = target
+
+
 def with_settings(settings, **values):
     """A copy of a settings module's upper-case names with `values` set on
     it, e.g. with_settings(st_dram_ref_att, USE_FUSED_STACK=False): a

@@ -8,8 +8,11 @@ Port of dram_tpu/core/ops.py (`windowing` :24, `otsu_threshold_u8` :89,
 `masked_mean` :213, `gsum` :219,
 `packbits_u8` :302, `unpackbits_u8_dev` :317, `unpackbits_np` :329) and
 its host twins of the inference engine (`windowing_np` :39,
-`binary_cam_np` :160, `find_crops_np` :238). The TPU's one-hot-matmul
-histogram (`histogram256_mxu`) becomes torch.bincount.
+`binary_cam_np` :160, `find_crops_np` :238), the bounding box and the
+masked stitch on tensors (`masked_bbox` :262, `stitch_masked` :286) and
+the segmentation metrics (`iou`, `dice`, `tpr`, `fdr` :343-367). The
+TPU's one-hot-matmul histogram (`histogram256_mxu`) becomes
+torch.bincount.
 """
 
 from __future__ import annotations
@@ -141,6 +144,36 @@ def find_crops_np(mask, spacing, border):
     return tuple(slices)
 
 
+def masked_bbox(mask):
+    """Bounding box of mask > 0 on the tensor's device: (starts, stops)
+    int32 tensors of length mask.ndim, without slicing; an empty mask
+    gives starts = shape and stops = 0."""
+    mask = mask > 0
+    ndim = mask.ndim
+    starts, stops = [], []
+    for ax in range(ndim):
+        proj = mask.any(dim=tuple(i for i in range(ndim) if i != ax)) \
+            if ndim > 1 else mask
+        idx = torch.arange(proj.shape[0], device=mask.device)
+        starts.append(torch.where(proj, idx, proj.shape[0]).min())
+        stops.append(torch.where(proj, idx + 1, 0).max())
+    return (torch.stack(starts).to(torch.int32),
+            torch.stack(stops).to(torch.int32))
+
+
+def stitch_masked(full, chunk, starts, mask):
+    """full[starts:starts + chunk.shape][mask > 0] = chunk[mask > 0] as a
+    new tensor (`full` is left as it is). `starts` (3 ints or a tensor)
+    are taken as lax.dynamic_slice takes them: a negative start counts
+    from the end, then each is clamped so that the region fits."""
+    starts = [min(max(s + n if s < 0 else s, 0), n - c) for s, n, c in
+              zip(torch.as_tensor(starts).tolist(), full.shape, chunk.shape)]
+    region = tuple(slice(s, s + c) for s, c in zip(starts, chunk.shape))
+    out = full.clone()
+    out[region] = torch.where(mask > 0, chunk.to(full.dtype), full[region])
+    return out
+
+
 def binary_cam_threshold(values01, mask=None, scaler=1.0, from_span=(0, 1)):
     """Threshold (in the [0, 1] domain, f32) of a CAM volume: window
     `from_span` to u8, Otsu within `mask`, times `scaler` capped at 255,
@@ -211,3 +244,36 @@ def unpackbits_np(packed, shape):
     """Host inverse of packbits_u8 -> u8 array of `shape`."""
     bits = np.unpackbits(np.asarray(packed, np.uint8))
     return bits[: int(np.prod(shape))].reshape(shape)
+
+
+# --- segmentation metrics (reference utils.py:437-462) -------------------
+
+
+def iou(predict, target, smooth=1e-5):
+    predict, target = predict > 0, target > 0
+    inter = torch.logical_and(predict, target).sum()
+    union = torch.logical_or(predict, target).sum()
+    return (inter + smooth) / (union + smooth)
+
+
+def dice(predict, target, smooth=1e-5):
+    predict, target = predict > 0, target > 0
+    inter = torch.logical_and(predict, target).sum()
+    return (2.0 * inter + smooth) / (predict.sum() + target.sum() + smooth)
+
+
+def tpr(predict, target):
+    """Hits over target voxels; inf for an empty target."""
+    t = (target > 0).sum()
+    hits = torch.logical_and(predict > 0, target > 0).sum()
+    r = hits / torch.clamp(t, min=1)
+    return torch.where(t == 0, torch.full_like(r, float("inf")), r)
+
+
+def fdr(predict, target):
+    """False positives over predicted voxels; inf for an empty
+    prediction."""
+    p = (predict > 0).sum()
+    fp = torch.logical_and(predict > 0, torch.logical_not(target > 0)).sum()
+    r = fp / torch.clamp(p, min=1)
+    return torch.where(p == 0, torch.full_like(r, float("inf")), r)

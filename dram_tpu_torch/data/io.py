@@ -1,9 +1,9 @@
 """MetaImage (.mha / .mhd) I/O in NumPy and zlib.
 
 Port of dram_tpu/data/io.py (`_parse_header` :41, `read_mha` :62,
-`write_mha` :121, `write_array_to_mha_itk` :203): a header parser and
-zlib (de)compression, no SimpleITK. Conventions, as dram_tpu's (the way
-the reference uses SimpleITK):
+`write_mha` :121, `resample_mha_file` :181, `write_array_to_mha_itk`
+:203): a header parser and zlib (de)compression, no SimpleITK.
+Conventions, as dram_tpu's (the way the reference uses SimpleITK):
 * `read_mha` returns the array in (z, y, x) index order, the layout
   sitk.GetArrayFromImage produces, with spacing and origin in (z, y, x)
   order and the direction matrix flattened in (z, y, x) row order;
@@ -176,6 +176,31 @@ def write_mha(path, array, spacing=(1.0, 1.0, 1.0), origin=(0.0, 0.0, 0.0),
         with open(os.path.join(os.path.dirname(os.path.abspath(path)),
                                data_name), "wb") as fp:
             fp.write(payload)
+
+
+def resample_mha_file(input_filename, output_filename, factor=2,
+                      interpolator="linear"):
+    """File -> file resample by a spacing factor (factor > 1
+    downsamples): the grid is ceil(size / factor), the interpolator any
+    name of core.resample.ITK_METHODS, on the NumPy separable path in
+    float32; an input other than float32 is rounded half to even and
+    cast back to its dtype (no clip). Origin and direction are kept.
+    Returns `output_filename`."""
+    from ..core.resample import itk_resample3d_np
+    d = read_mha(input_filename)
+    spacing = np.asarray(d["spacing"], np.float64)
+    new_spacing = spacing * factor
+    scales = new_spacing / spacing
+    out_size = tuple(int(np.ceil(s / sc))
+                     for s, sc in zip(d["array"].shape, scales))
+    arr = itk_resample3d_np(d["array"].astype(np.float32), out_size,
+                            scales=scales.tolist(), method=interpolator,
+                            fill_value=0.0)
+    if d["array"].dtype != np.float32:
+        arr = np.round(arr).astype(d["array"].dtype)
+    write_mha(output_filename, arr, spacing=tuple(new_spacing),
+              origin=d["origin"], direction=d["direction"])
+    return output_filename
 
 
 def write_array_to_mha_itk(target_path, arrs, names, type=np.int16,

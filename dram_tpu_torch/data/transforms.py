@@ -1,18 +1,20 @@
 """Host transforms over the `#key` / meta sample-dict contract.
 
 Port of dram_tpu/data/transforms.py: `Compose` (:26), the key predicates
-(:36-46), `RemoveMeta` (:48), `Windowing` (:63), `resample_array` (:78)
-and `Resample` (:135) in the modes the settings take: "fixed_size"
-(RESAMPLE_MODE of the shipped settings) and "fixed_spacing" (the
-host-stitch paths' spacing), and the training augmentations:
-`GaussianBlur` (:248), `GaussianAddictive` (:261), `RandomMaskOut`
-(:282), `RandomFlip` (:319), `RandomRotate90` (:332) and
-`ensemble_augmentation` (:685). Samples are dicts whose `#`-prefixed keys
-hold arrays and whose `meta` dict carries uid, spacing and size; keys
-holding "reference" or "weight_map" resample nearest, the others
-linearly. The augmentations draw from the global `np.random`, as the JAX
-package's do, so one seed gives both packages' arrays. The other
-resample modes and transforms are not ported (ROADMAP Queue 1 item 3).
+(:36-46), `RemoveMeta` (:48), `Windowing` (:63), `resample_array` (:78),
+`Resample` (:135) in all thirteen modes of its plan (:147-208), the
+training augmentations `GaussianBlur` (:248), `GaussianAddictive` (:261),
+`RandomMaskOut` (:282), `RandomFlip` (:319), `RandomRotate90` (:332) and
+`ensemble_augmentation` (:685), and the extended zoo (:353-682): the
+intensity transforms (inverse, gamma, contrast jitter and stretching,
+histogram equalisation, standardisation), the crops and masks, the axis
+moves and rotations, the 3-D affine and the slab projections. Samples
+are dicts whose `#`-prefixed keys hold arrays and whose `meta` dict
+carries uid, spacing and size; keys holding "reference" or "weight_map"
+resample (and rotate) nearest, the others linearly. The random
+transforms draw from the global `np.random`, as the JAX package's do, so
+one seed gives both packages' arrays. scipy is imported inside the
+transforms that call it.
 """
 
 from __future__ import annotations
@@ -122,26 +124,80 @@ def resample_array(v, spacing, require_spacing=None, new_size=None,
 
 
 class Resample:
-    """Resample every `#` key of a sample ("fixed_size": to `size` voxels;
-    "fixed_spacing": to `factor` mm, a number or a z-y-x triple)."""
+    """Resample every `#` key of a sample to the spacing (and size) of
+    the mode's plan; `factor` and `size` are the mode's parameters (the
+    settings' RESAMPLE_SPACING and RESAMPLE_SIZE). The two random modes
+    ("random_spacing", "inplane_resolution_z_jittering") draw from the
+    global np.random."""
 
     def __init__(self, mode, factor, size=None):
-        if mode not in ("fixed_size", "fixed_spacing"):
-            raise NotImplementedError(
-                f"Resample mode {mode!r} is not ported (ROADMAP Queue 1 "
-                "item 3, data layer)")
         self.mode = mode
         self.factor = factor
         self.size = list(size) if size else None
 
+    def _inplane(self, spacing, size):
+        """The in-plane spacings that put `size`'s rows and columns on
+        self.size's."""
+        return [spacing[1] * size[1] / self.size[1],
+                spacing[2] * size[2] / self.size[2]]
+
     def _plan(self, sample):
+        """(required z-y-x spacing, output size or None: the grid the
+        spacing gives)."""
         spacing = np.asarray(sample["meta"]["spacing"], np.float64)
-        if self.mode == "fixed_spacing":
-            if isinstance(self.factor, (float, int)):
-                return [self.factor] * len(spacing), None
-            return list(self.factor), None
-        ratios = np.asarray(sample["meta"]["size"]) / np.asarray(self.size)
-        return (spacing * ratios).tolist(), self.size[:]
+        size = np.asarray(sample["meta"]["size"])
+        mode, factor = self.mode, self.factor
+        if mode == "random_spacing":
+            f = np.random.uniform(factor[0], factor[1])
+            return [f] * len(spacing), None
+        if mode == "fixed_factor":
+            return (spacing * factor).tolist(), None
+        if mode == "fixed_spacing":
+            if isinstance(factor, (float, int)):
+                return [factor] * len(spacing), None
+            return list(factor), None
+        if mode == "inplane_spacing_only":
+            return [spacing[0], factor[1], factor[2]], None
+        if mode == "inplane_resolution_only":
+            return ([spacing[0]] + self._inplane(spacing, size),
+                    [int(size[0]), self.size[1], self.size[2]])
+        if mode == "inplane_resolution_z_spacing":
+            return ([factor[0]] + self._inplane(spacing, size),
+                    [int(round(size[0] * spacing[0] / factor[0])),
+                     self.size[1], self.size[2]])
+        if mode == "inplane_resolution_z_jittering":
+            z = spacing[0] + np.random.uniform(-factor, factor)
+            return ([z] + self._inplane(spacing, size),
+                    [int(round(size[0] * spacing[0] / z)), self.size[1],
+                     self.size[2]])
+        if mode == "inplane_resolution_min_z_spacing":
+            if spacing[0] < factor[0]:
+                return ([factor[0]] + self._inplane(spacing, size),
+                        [int(round(size[0] * spacing[0] / factor[0])),
+                         self.size[1], self.size[2]])
+            return ([spacing[0]] + self._inplane(spacing, size),
+                    [int(size[0]), self.size[1], self.size[2]])
+        if mode == "fixed_spacing_min_in_plane_resolution":
+            f = [factor] * 3 if not isinstance(factor, (tuple, list)) \
+                else factor
+            if int(round(size[1] * spacing[1] / f[1])) > self.size[1]:
+                return ([spacing[0]] + self._inplane(spacing, size),
+                        [int(size[0]), self.size[1], self.size[2]])
+            return [spacing[0], f[1], f[2]], None
+        if mode == "iso_minimal":
+            return [float(spacing.min())] * len(spacing), None
+        if mode == "fixed_output_size":
+            rs = [spacing[-1] * (size[-1] / self.size[-1])] * len(spacing)
+            ns = self.size[:]
+            ns[0] = int(round(size[0] * spacing[0] / rs[0]))
+            ns[1] = int(round(size[1] * spacing[1] / rs[1]))
+            return rs, ns
+        if mode == "fixed_size":
+            ratios = size / np.asarray(self.size)
+            return (spacing * ratios).tolist(), self.size[:]
+        if mode == "spacing_size_match":
+            return list(factor), self.size[:]
+        raise ValueError(f"unknown Resample mode {mode!r}")
 
     def __call__(self, sample):
         require_spacing, new_size = self._plan(sample)
@@ -285,6 +341,368 @@ class RandomRotate90:
         return {key: (np.rot90(v, k=k, axes=ax).copy()
                       if _is_tensor_key(key) else v)
                 for key, v in sample.items()}
+
+
+# --- the extended zoo (reference data_transforms.py:213-1131) -----------
+
+
+def _images(sample, fn):
+    """`fn` on every image key (as float32), the other keys as they are."""
+    return {k: (fn(v.astype(np.float32)) if _is_image_key(k) else v)
+            for k, v in sample.items()}
+
+
+def _spatial_shape(sample, n=3):
+    return next(v for k, v in sample.items() if _is_tensor_key(k)).shape[-n:]
+
+
+class IntensityInverse:
+    """Mirror the intensities within each image's own range."""
+
+    def __call__(self, sample):
+        def inv(v):
+            lo, hi = v.min(), v.max()
+            return (hi + lo) - v
+        return _images(sample, inv)
+
+
+class GammaTransform:
+    """x -> x^g in each image's own range, g drawn from `gamma_range`."""
+
+    def __init__(self, gamma_range=(0.7, 1.5)):
+        self.gamma_range = gamma_range
+
+    def __call__(self, sample):
+        g = np.random.uniform(*self.gamma_range)
+
+        def apply(v):
+            lo, hi = v.min(), v.max()
+            x = (v - lo) / max(hi - lo, 1e-7)
+            return np.power(x, g) * (hi - lo) + lo
+        return _images(sample, apply)
+
+
+class ContrastJitter:
+    """Scale about the mean by a factor drawn from `jitter_range`, clipped
+    to the image's range with `if_keep_range`."""
+
+    def __init__(self, jitter_range=(0.75, 1.25), if_keep_range=True,
+                 channel_dim=None):
+        self.jitter_range = jitter_range
+        self.keep = if_keep_range
+
+    def __call__(self, sample):
+        f = np.random.uniform(*self.jitter_range)
+
+        def apply(v):
+            m = v.mean()
+            out = (v - m) * f + m
+            if self.keep:
+                out = np.clip(out, v.min(), v.max())
+            return out
+        return _images(sample, apply)
+
+
+class ContrastStretchingTransform:
+    """Stretch the `percentiles` span onto the image's range."""
+
+    def __init__(self, percentiles=(2, 98)):
+        self.percentiles = percentiles
+
+    def __call__(self, sample):
+        def apply(v):
+            p_lo, p_hi = np.percentile(v, self.percentiles)
+            return windowing_np(v, (p_lo, p_hi), (v.min(), v.max()))
+        return _images(sample, apply)
+
+
+class HistogramEqual:
+    """Histogram equalisation over `nbins` bins, back in the image's
+    range."""
+
+    def __init__(self, nbins=256):
+        self.nbins = nbins
+
+    def __call__(self, sample):
+        def apply(v):
+            lo, hi = v.min(), v.max()
+            hist, bins = np.histogram(v.ravel(), self.nbins, range=(lo, hi))
+            cdf = hist.cumsum().astype(np.float64)
+            cdf = cdf / cdf[-1]
+            out = np.interp(v.ravel(), bins[:-1], cdf)
+            return (out.reshape(v.shape) * (hi - lo) + lo).astype(np.float32)
+        return _images(sample, apply)
+
+
+class StandarizeChannel:
+    """Zero mean, unit standard deviation."""
+
+    def __call__(self, sample):
+        return _images(sample, lambda v: (v - v.mean()) / max(v.std(), 1e-7))
+
+
+class CenterCrop:
+    """Crop every `#` key to `crop_sizes_ratio` of its spatial extent,
+    centred; meta's size follows."""
+
+    def __init__(self, crop_sizes_ratio, spatial_dim=3):
+        self.ratio = crop_sizes_ratio
+        self.spatial_dim = spatial_dim
+
+    def __call__(self, sample):
+        shape = _spatial_shape(sample, self.spatial_dim)
+        sizes = [int(s * r) for s, r in zip(shape, self.ratio)]
+        sl = (Ellipsis,) + tuple(slice((s - c) // 2, (s - c) // 2 + c)
+                                 for s, c in zip(shape, sizes))
+        out = {k: (v[sl].copy() if _is_tensor_key(k) else v)
+               for k, v in sample.items()}
+        meta = copy.deepcopy(sample["meta"])
+        meta["size"] = tuple(sizes)
+        out["meta"] = meta
+        return out
+
+
+class RandomCrop:
+    """A random crop (ratios drawn from `crop_ratio_range`) resampled back
+    to the original extent, references nearest."""
+
+    def __init__(self, crop_ratio_range=(0.7, 0.95), spatial_dim=3):
+        self.range = crop_ratio_range
+        self.spatial_dim = spatial_dim
+
+    def __call__(self, sample):
+        shape = _spatial_shape(sample, self.spatial_dim)
+        ratios = np.random.uniform(*self.range, size=self.spatial_dim)
+        sizes = [max(2, int(s * r)) for s, r in zip(shape, ratios)]
+        starts = [np.random.randint(0, s - c + 1)
+                  for s, c in zip(shape, sizes)]
+        sl = (Ellipsis,) + tuple(slice(st, st + c)
+                                 for st, c in zip(starts, sizes))
+        out = {}
+        for k, v in sample.items():
+            if not _is_tensor_key(k):
+                out[k] = v
+                continue
+            interp = "nearest" if _is_reference_key(k) else "linear"
+            rs, _ = resample_array(v[sl].astype(np.float32), (1.0,) * 3,
+                                   new_size=shape, interpolator=interp)
+            out[k] = rs.astype(v.dtype) if _is_reference_key(k) else rs
+        return out
+
+
+def _random_boxes(shape, times, size_range, least):
+    """`times` boxes of random size (a fraction of each extent drawn from
+    `size_range`, at least `least`) at random starts."""
+    boxes = []
+    for _ in range(times):
+        size = [max(least, int(np.random.uniform(*size_range) * s))
+                for s in shape]
+        start = [np.random.randint(0, max(1, s - c))
+                 for s, c in zip(shape, size)]
+        boxes.append((Ellipsis,) + tuple(slice(st, st + c)
+                                         for st, c in zip(start, size)))
+    return boxes
+
+
+class RandomCubeMask:
+    """`times` random boxes of the image keys set to the image's minimum
+    (fill "min") or 0."""
+
+    def __init__(self, times=3, size_range=(0.05, 0.15), fill="min"):
+        self.times = times
+        self.size_range = size_range
+        self.fill = fill
+
+    def __call__(self, sample):
+        boxes = _random_boxes(_spatial_shape(sample), self.times,
+                              self.size_range, 0)
+
+        def apply(v):
+            out = v.copy()
+            fill = out.min() if self.fill == "min" else 0
+            for b in boxes:
+                out[b] = fill
+            return out
+        return {k: (apply(v) if _is_image_key(k) else v)
+                for k, v in sample.items()}
+
+
+class RandomMaskGaussian:
+    """Gaussian noise (`sigma` of the image's standard deviation) added
+    in `times` random boxes of the image keys."""
+
+    def __init__(self, times=3, size_range=(0.05, 0.15), sigma=0.1):
+        self.times = times
+        self.size_range = size_range
+        self.sigma = sigma
+
+    def __call__(self, sample):
+        boxes = _random_boxes(_spatial_shape(sample), self.times,
+                              self.size_range, 1)
+
+        def apply(v):
+            out = v.copy().astype(np.float32)
+            for b in boxes:
+                region = out[b]
+                out[b] = region + np.random.normal(
+                    0, self.sigma * max(v.std(), 1e-7), region.shape)
+            return out
+        return {k: (apply(v) if _is_image_key(k) else v)
+                for k, v in sample.items()}
+
+
+class DiskMaskOut:
+    """Set the image keys to their minimum outside a centred ellipsoid of
+    `radius_ratio` of each extent."""
+
+    def __init__(self, radius_ratio=0.5):
+        self.radius_ratio = radius_ratio
+
+    def __call__(self, sample):
+        shape = _spatial_shape(sample)
+        grids = np.meshgrid(*[np.arange(s) - s / 2 for s in shape],
+                            indexing="ij")
+        r2 = sum((g / (s * self.radius_ratio / 2 + 1e-7)) ** 2
+                 for g, s in zip(grids, shape))
+        mask = r2 <= 1.0
+
+        def apply(v):
+            out = v.copy()
+            out[..., ~mask] = out.min()
+            return out
+        return {k: (apply(v) if _is_image_key(k) else v)
+                for k, v in sample.items()}
+
+
+class RandomMoveAxis:
+    """Permute the spatial axes of every `#` key at random."""
+
+    def __init__(self, spatial_dim=3):
+        self.spatial_dim = spatial_dim
+
+    def __call__(self, sample):
+        perm = np.random.permutation(self.spatial_dim)
+        src = [-n for n in range(1, self.spatial_dim + 1)]
+        dst = [src[p] for p in perm]
+        return {k: (np.moveaxis(v, src, dst).copy() if _is_tensor_key(k)
+                    else v)
+                for k, v in sample.items()}
+
+
+class RandomRotate:
+    """Rotate every `#` key by an angle drawn from `angle_range` in the
+    `axes` plane (scipy.ndimage.rotate, same shape, edges replicated;
+    references nearest, images linear)."""
+
+    def __init__(self, angle_range=(-10, 10), axes=(-2, -1)):
+        self.angle_range = angle_range
+        self.axes = axes
+
+    def __call__(self, sample):
+        from scipy import ndimage
+        angle = np.random.uniform(*self.angle_range)
+        return {k: (ndimage.rotate(v, angle, axes=self.axes, reshape=False,
+                                   order=0 if _is_reference_key(k) else 1,
+                                   mode="nearest")
+                    if _is_tensor_key(k) else v)
+                for k, v in sample.items()}
+
+
+class RandomRotateInplane90:
+    """Rotate every `#` key by k * 90 degrees in the (y, x) plane."""
+
+    def __call__(self, sample):
+        k = int(np.random.randint(0, 4))
+        return {key: (np.rot90(v, k=k, axes=(-2, -1)).copy()
+                      if _is_tensor_key(key) else v)
+                for key, v in sample.items()}
+
+
+class RandomAffineTransform3D:
+    """A random rotation (degrees per axis from `rot_range`) times a
+    random per-axis scale about the volume's centre
+    (scipy.ndimage.affine_transform, edges replicated; references
+    nearest, images linear)."""
+
+    def __init__(self, rot_range=(-10, 10), scale_range=(0.9, 1.1)):
+        self.rot_range = rot_range
+        self.scale_range = scale_range
+
+    def _matrix(self):
+        ax, ay, az = np.deg2rad(np.random.uniform(*self.rot_range, 3))
+        s = np.random.uniform(*self.scale_range, 3)
+        Rx = np.array([[1, 0, 0], [0, np.cos(ax), -np.sin(ax)],
+                       [0, np.sin(ax), np.cos(ax)]])
+        Ry = np.array([[np.cos(ay), 0, np.sin(ay)], [0, 1, 0],
+                       [-np.sin(ay), 0, np.cos(ay)]])
+        Rz = np.array([[np.cos(az), -np.sin(az), 0],
+                       [np.sin(az), np.cos(az), 0], [0, 0, 1]])
+        return (Rx @ Ry @ Rz) * s
+
+    def __call__(self, sample):
+        from scipy import ndimage
+        M = self._matrix()
+        out = {}
+        for k, v in sample.items():
+            if not _is_tensor_key(k):
+                out[k] = v
+                continue
+            center = np.asarray(v.shape[-3:]) / 2.0
+            out[k] = ndimage.affine_transform(
+                v, M, offset=center - M @ center,
+                order=0 if _is_reference_key(k) else 1, mode="nearest")
+        return out
+
+
+def _trailing_projection(data, slab, axis, reduce_max):
+    """The reference's slab projection (data_transforms.py:416-430):
+    output slice i is the min (max) over input slices [max(0, i - slab),
+    i] along `axis`, a trailing window of slab + 1 clipped at the start.
+    A 1-d filter with origin slab // 2 (scipy shifts a positive origin's
+    window to lower indices) and edge replication: below slab the
+    replicated edge repeats data[0], already in the clipped window."""
+    from scipy import ndimage
+    filt = ndimage.maximum_filter1d if reduce_max \
+        else ndimage.minimum_filter1d
+    return filt(data, size=slab + 1, axis=axis, mode="nearest",
+                origin=slab // 2)
+
+
+class MinimalIntensityProjection:
+    """Sliding minimum-intensity slab projection of the image keys: per
+    call a slab thickness drawn from [lo, hi) and a projection axis from
+    `angle`."""
+
+    reduce_max = False
+
+    def __init__(self, slab_thickness=(3, 10), angle=(0, 3)):
+        self.slab_thickness = tuple(slab_thickness)
+        self.angle = tuple(angle)
+
+    def _draw(self):
+        slab = int(np.random.randint(*self.slab_thickness))
+        axis = int(np.random.randint(*self.angle))
+        return slab, axis
+
+    def __call__(self, sample):
+        slab, axis = self._draw()
+        return _images(sample, lambda v: _trailing_projection(
+            v, slab, axis - 3, self.reduce_max))
+
+
+class MinimalIntensityAxialProjection(MinimalIntensityProjection):
+    """Axial (z only) variant. The reference computes a spacing-scaled
+    axial thickness and then projects with the raw slab thickness; the
+    defect is kept, as the JAX package keeps it."""
+
+    def __init__(self, slab_thickness=(3, 10)):
+        super().__init__(slab_thickness, angle=(0, 1))
+
+
+class MaximumIntensityProjection(MinimalIntensityProjection):
+    """The maximum-intensity counterpart."""
+
+    reduce_max = True
 
 
 def ensemble_augmentation(aug_ratio):

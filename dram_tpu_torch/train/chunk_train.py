@@ -17,6 +17,9 @@ epoch % VAL_EPOCHS == 0, at the last epoch and for epochs under 15,
 steps the scheduler after each validation (its lr written into the
 optimizer at once, as torch's schedulers do), appends a row to
 records.csv, and saves `{epoch}.ckpt` every STATE_EPOCHS and at the end.
+With PROFILE_DIR set, the steps of epoch PROFILE_EPOCH (default 1) run
+under torch.profiler, whose Chrome trace goes into PROFILE_DIR (dram_tpu
+writes a JAX trace there).
 A resumed run starts again at the checkpoint's epoch, as the JAX loop
 does.
 
@@ -222,11 +225,42 @@ class LesionSegChunkTrain(JobRunner):
             with open(os.path.join(trace_dir, "transform.txt"), "wt") as fp:
                 fp.write(f"{T!r}\n")
 
+    def _start_profile(self):
+        """A started torch.profiler over this epoch's steps when
+        PROFILE_DIR is set and the epoch is PROFILE_EPOCH (default 1),
+        else None: CPU activity, and CUDA's on the card."""
+        s = self.settings
+        if not getattr(s, "PROFILE_DIR", None) or \
+                self.epoch_n != getattr(s, "PROFILE_EPOCH", 1):
+            return None
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof):
+        """Stop `prof` (the card synchronised first) and write its Chrome
+        trace, PROFILE_DIR/epoch_<n>_rank_<r>.trace.json; returns the
+        path."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        out = self.settings.PROFILE_DIR
+        os.makedirs(out, exist_ok=True)
+        path = os.path.join(out, f"epoch_{self.epoch_n}_rank_{rank()}"
+                                 ".trace.json")
+        prof.export_chrome_trace(path)
+        self.logger.info(f"profile of epoch {self.epoch_n} -> {path}")
+        return path
+
     def train(self):
         """One epoch of steps. Returns tr_loss (the sample-weighted mean
         loss), tr_data_time and tr_batch_time (s a step); `epoch_stats`
         also holds the steps, each step's loss, their wall seconds and the
-        peak device MiB."""
+        peak device MiB, and the trace's path when the epoch is profiled
+        (PROFILE_DIR, PROFILE_EPOCH)."""
         s = self.settings
         batch_time, data_time, loss_record = \
             AverageMeter(), AverageMeter(), AverageMeter()
@@ -236,6 +270,7 @@ class LesionSegChunkTrain(JobRunner):
         trace_steps = getattr(s, "TRACE_STEPS", 0)
         seed = int(getattr(s, "RANDOM_SEED", 33))
         peak = 0.0 if self.device.type == "cuda" else None
+        prof = self._start_profile()
         t_start = time.time()
         end = time.time()
         pending = None  # the previous step's (loss, losses, batch size)
@@ -283,6 +318,8 @@ class LesionSegChunkTrain(JobRunner):
         self.epoch_stats = {"steps": batch_time.count, "losses": losses,
                             "seconds": time.time() - t_start,
                             "peak_mib": peak}
+        if prof is not None:
+            self.epoch_stats["trace"] = self._stop_profile(prof)
         return {"tr_loss": loss_record.avg, "tr_data_time": data_time.avg,
                 "tr_batch_time": batch_time.avg}
 

@@ -2,9 +2,12 @@
 
 Port of dram_tpu/utils.py: `convert_dict_string` (:21), `Settings` (:34),
 the CSV readers `read_csv_in_dict` (:317) and `read_csv_in_dict_double`
-(:329), `get_value_recursively` (:341) and `AverageMeter` (:360), and the
-records.csv writer of the runners (`write_records`, the layout pandas
-writes).
+(:329), `get_value_recursively` (:341), the meters and loggers
+`AverageMeter` (:360), `MovingAverage` (:379), `Timer` (:390) and
+`PD_Stats` (:398, pandas imported when one is made), `expand_dims_np` /
+`squeeze_dims_np` (:415-427), `count_params` (:430, over an nn.Module or
+a dict of tensors) and `estimate_conv3d_macs` (:438), and the records.csv
+writer of the runners (`write_records`, the layout pandas writes).
 Settings are plain Python modules whose UPPERCASE names become
 attributes; `Settings` also lifts them from an imported settings module
 or a dram_tpu_torch.configs.with_settings namespace, so that a caller can
@@ -17,6 +20,7 @@ import csv
 import importlib.util
 import math
 import os
+import time
 
 
 def convert_dict_string(d, i=1):
@@ -160,3 +164,93 @@ class AverageMeter:
         self.sum += val * n
         self.count += n
         self.avg = self.sum / max(self.count, 1)
+
+
+class MovingAverage:
+    """Exponential moving average with weight `inertia` on the past."""
+
+    def __init__(self, inertia=0.9):
+        self.inertia = inertia
+        self.reset()
+
+    def reset(self):
+        self.avg = 0.0
+
+    def update(self, val):
+        self.avg = self.inertia * self.avg + (1 - self.inertia) * val
+
+
+class Timer:
+    def __init__(self):
+        self.t0 = time.time()
+
+    def elapsed(self):
+        return time.time() - self.t0
+
+
+class PD_Stats:
+    """A pandas DataFrame of rows pickled to `path` at each update,
+    resumed from the pickle when it exists (its columns must match)."""
+
+    def __init__(self, path, columns):
+        import pandas as pd
+        self.path = path
+        if os.path.isfile(path):
+            self.stats = pd.read_pickle(path)
+            assert list(self.stats.columns) == list(columns)
+        else:
+            self.stats = pd.DataFrame(columns=columns)
+
+    def update(self, row, save=True):
+        self.stats.loc[len(self.stats.index)] = row
+        if save:
+            self.stats.to_pickle(self.path)
+
+
+def expand_dims_np(a, expected_dim):
+    """Prepend singleton axes until `a` has `expected_dim` axes."""
+    while a.ndim < expected_dim:
+        a = a[None]
+    return a
+
+
+def squeeze_dims_np(a, expected_dim, squeeze_start_index=0):
+    """Squeeze axis `squeeze_start_index` until `a` has `expected_dim`
+    axes."""
+    while a.ndim > expected_dim:
+        a = a.squeeze(squeeze_start_index)
+    return a
+
+
+def count_params(tree):
+    """Parameter count of an nn.Module (its parameters) or of a (nested)
+    dict, list or tuple of arrays or tensors."""
+    if hasattr(tree, "parameters"):
+        return int(sum(p.numel() for p in tree.parameters()))
+    if isinstance(tree, dict):
+        return sum(count_params(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(count_params(v) for v in tree)
+    return int(math.prod(tree.shape))
+
+
+def estimate_conv3d_macs(model_cfg, spatial_size):
+    """Rough MAC count of the DC3D channel plan (n_layers,
+    base_ch_list, end_ch_list, in_ch_list) at a chunk size: over the
+    conv stacks, output voxels * 27 * (c_in * base + base * end)."""
+    n = model_cfg["n_layers"]
+    base = model_cfg["base_ch_list"]
+    end = model_cfg["end_ch_list"]
+    in_ch = model_cfg["in_ch_list"]
+    macs = 0
+    size = [int(s) for s in spatial_size]
+    for i in range(n):  # encoder, full size down
+        macs += math.prod(size) * 27 * (in_ch[i] * base[i] + base[i] * end[i])
+        size = [s // 2 for s in size]
+    macs += math.prod(size) * 27 * (in_ch[n] * base[n] + base[n] * end[n])
+    for i in range(n):  # decoder
+        size = [s * 2 for s in size]
+        li = n + 1 + i
+        macs += math.prod(size) * 27 * (in_ch[li] * base[li]
+                                        + base[li] * end[li])
+    return macs

@@ -12,7 +12,8 @@ its host twins of the inference engine (`windowing_np` :39,
 masked stitch on tensors (`masked_bbox` :262, `stitch_masked` :286) and
 the segmentation metrics (`iou`, `dice`, `tpr`, `fdr` :343-367). The
 TPU's one-hot-matmul histogram (`histogram256_mxu`) becomes
-torch.bincount.
+torch.bincount. `upload` is the scan path's one host-to-device copy,
+counted by the tracer.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from .mesh import all_reduce_sum
 
 # CT severity score -> lesion-ratio interval per lobe
@@ -220,21 +222,32 @@ def gsum(x, group=None):
     return all_reduce_sum(s, group)
 
 
+def upload(a, device, dtype=None):
+    """Host array -> tensor on `device`: torch.from_numpy(a).to(device,
+    dtype), from the array's own memory (pageable unless its owner
+    pinned it; the copy waits for the stream). Every host-to-device copy
+    of the scan path goes through here: a tracer span `h2d` around it
+    and one count of `h2d_copies` (a call on a CPU device counts too)."""
+    with tracing.span("h2d"):
+        tracing.count("h2d_copies")
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
+
+
 def packbits_u8(mask):
     """Pack a bool/0-1 tensor into u8, np.packbits MSB-first order."""
     flat = (mask.reshape(-1) > 0).to(torch.int32)
     pad = (-flat.shape[0]) % 8
     if pad:
         flat = torch.cat([flat, flat.new_zeros(pad)])
-    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32,
-                           device=flat.device)
+    weights = upload(np.array([128, 64, 32, 16, 8, 4, 2, 1], np.int32),
+                     flat.device)
     return (flat.reshape(-1, 8) * weights).sum(1).to(torch.uint8)
 
 
 def unpackbits_u8_dev(packed, shape):
     """Inverse of packbits_u8 on a tensor: u8 (n_bytes,) -> bool `shape`."""
-    shifts = torch.tensor([7, 6, 5, 4, 3, 2, 1, 0], dtype=torch.uint8,
-                          device=packed.device)
+    shifts = upload(np.array([7, 6, 5, 4, 3, 2, 1, 0], np.uint8),
+                    packed.device)
     bits = (packed[:, None] >> shifts) & 1
     n = int(np.prod(shape))
     return (bits.reshape(-1)[:n] > 0).reshape(tuple(shape))

@@ -145,8 +145,9 @@ class LesionSegTest:
             "metrics": dict(self._runner.model_metrics_save_dict)}
         self._fast_pipes = {}
         self._pipe_lock = threading.Lock()
-        # per archived scan: uid and the wall ms of its stages (load, prep,
-        # pre / model / post, archive and the screenshots within it)
+        # per archived scan: uid and the ms of its stages (wall ms of load,
+        # prep, archive and the screenshots within it; device ms of pre /
+        # model / post, the pipeline's stage_ms)
         self.timings = []
 
     def _fast(self, device=None):

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .. import tracing
 from ..core import ops
 from ..core.resample import resize3d
 from .blocks import BatchNorm, Conv1x1
@@ -106,9 +107,12 @@ class DC3DATGeneric(nn.Module):
         return dense, torch.cat(taps, dim=-1)
 
     def apply_attention(self, dense, features):
-        cam = resize3d(dense, self.at_spatial_size)
-        refined = self.attention_module(cam, features)
-        return resize3d(refined, dense.shape[1:4]).float()
+        """The CAM resized to the attention grid, refined by the PCM and
+        resized back: the tracer's `pcm` span."""
+        with tracing.span("pcm", dense.device):
+            cam = resize3d(dense, self.at_spatial_size)
+            refined = self.attention_module(cam, features)
+            return resize3d(refined, dense.shape[1:4]).float()
 
     def pooling_dense_features(self, dense_outs, lungs, pooling_method=None):
         return ops.pooling_dense_features(

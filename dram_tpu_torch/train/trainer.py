@@ -40,12 +40,11 @@ dram_tpu's.
 from __future__ import annotations
 
 import logging
-import time
 
 import numpy as np
 import torch
 
-from .. import require_cuda, weights
+from .. import require_cuda, tracing, weights
 from ..configs import get_callable_by_name
 from ..core.mesh import average_gradients, replicate
 from ..losses.interval_reg import DEFAULT_CTSS_FREQUENCY
@@ -261,30 +260,6 @@ def fix_random_seeds(seed):
 # --- the step -------------------------------------------------------------------
 
 
-class _StageClock:
-    """Stage boundaries: CUDA events on the card (read after one
-    synchronize), the host clock on the CPU."""
-
-    def __init__(self, device):
-        self.cuda = device.type == "cuda"
-        self.marks = []
-
-    def mark(self):
-        if self.cuda:
-            e = torch.cuda.Event(enable_timing=True)
-            e.record()
-            self.marks.append(e)
-        else:
-            self.marks.append(time.perf_counter())
-
-    def spans_ms(self):
-        if self.cuda:
-            torch.cuda.synchronize()
-            return [a.elapsed_time(b) for a, b in
-                    zip(self.marks, self.marks[1:])]
-        return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
-
-
 class TrainStep:
     """One optimizer step of `model` on one batch: forward through the
     loss (which calls the model via `model_fn`), backward, optimizer
@@ -314,55 +289,72 @@ class TrainStep:
         u16 wire with its `span`, lobes and lesions (B, D, H, W, 1),
         ctss (B,) ints, freq (6,) the CTSS frequency map, weights (B,)
         (ones when None); under data parallelism this rank's rows of the
-        padded global batch and their weights. Returns {"losses": (n_losses,) f32, "loss":
-        total, "ms": {"forward", "backward", "optimizer"}, "peak_mib"}.
-        With timed=False nothing waits for the device ("ms" is None):
-        the epoch loop reads the loss a step later."""
+        padded global batch and their weights. Returns {"losses":
+        (n_losses,) f32, "loss": total, "ms": {"forward", "backward",
+        "optimizer"}, "peak_mib"}.
+
+        The step is one tracer unit `step` (dram_tpu_torch.tracing) with
+        the spans `unpack` (the wire), `loss` (the loss, its `model`
+        calls inside), `backward` (the gradient fill and the ranks'
+        average included) and `optimizer`. "ms" holds the device ms of
+        loss, backward and optimizer (CUDA events on the card, read
+        after one synchronize; the host ms on the CPU). With timed=False
+        the tracer is left as it is (off unless a profiler records) and
+        nothing waits for the device ("ms" is None): the epoch loop
+        reads the loss a step later."""
         device = images.device
-        images = unpack_image_wire(images, span)
-        lobes, lesions = lobes.float(), lesions.float()
-        if weights is None:
-            weights = torch.ones(images.shape[0], device=device)
-        self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
-        if device.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(device)
-        clock = _StageClock(device)
-        clock.mark()
+        with tracing.unit("step", force=timed) as step:
+            with tracing.span("unpack", device):
+                images = unpack_image_wire(images, span)
+                lobes, lesions = lobes.float(), lesions.float()
+                if weights is None:
+                    weights = torch.ones(images.shape[0], device=device)
+            self.model.train()
+            self.optimizer.zero_grad(set_to_none=True)
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(device)
 
-        if hasattr(self.model, "set_dropout_generator"):
-            self.model.set_dropout_generator(self.dropout_gen)
+            if hasattr(self.model, "set_dropout_generator"):
+                self.model.set_dropout_generator(self.dropout_gen)
 
-        def model_fn(im, lo):
-            return self.model(im)
+            def model_fn(im, lo):
+                with tracing.span("model", device):
+                    return self.model(im)
 
-        losses = self.loss_func(model_fn, images, lobes, lesions, ctss,
-                                ctss_frequency=freq, rng=self.transform_gen,
-                                sample_weight=weights, group=self.group)
-        # extra factors are legal (the reference ships 4 for the 2-term
-        # IntRegRefineLoss); fewer would silently drop a loss term
-        if len(losses) > len(self.factors):
-            raise ValueError(
-                f"{type(self.loss_func).__name__} returns {len(losses)} "
-                f"loss terms but LOSS_FACTORS has only {len(self.factors)} "
-                "entries; zip would silently drop a loss from the objective")
-        total = sum(l * f for l, f in zip(losses, self.factors))
-        clock.mark()
-        total.backward()
-        # optax updates every parameter, a zero gradient included (Adam's
-        # moments decay, AdamW decays the weight): a parameter the loss
-        # does not reach (the PCM under IntRegAffLoss) gets a zero one
-        for p in self.model.parameters():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        average_gradients(self.model.parameters(), self.group)
-        clock.mark()
-        self.optimizer.step()
-        clock.mark()
+            with tracing.span("loss", device):
+                losses = self.loss_func(
+                    model_fn, images, lobes, lesions, ctss,
+                    ctss_frequency=freq, rng=self.transform_gen,
+                    sample_weight=weights, group=self.group)
+                # extra factors are legal (the reference ships 4 for the
+                # 2-term IntRegRefineLoss); fewer would silently drop a
+                # loss term
+                if len(losses) > len(self.factors):
+                    raise ValueError(
+                        f"{type(self.loss_func).__name__} returns "
+                        f"{len(losses)} loss terms but LOSS_FACTORS has only "
+                        f"{len(self.factors)} entries; zip would silently "
+                        "drop a loss from the objective")
+                total = sum(l * f for l, f in zip(losses, self.factors))
+            with tracing.span("backward", device):
+                total.backward()
+                # optax updates every parameter, a zero gradient included
+                # (Adam's moments decay, AdamW decays the weight): a
+                # parameter the loss does not reach (the PCM under
+                # IntRegAffLoss) gets a zero one
+                for p in self.model.parameters():
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                average_gradients(self.model.parameters(), self.group)
+            with tracing.span("optimizer", device):
+                self.optimizer.step()
         ms = None
         if timed:
-            fwd, bwd, opt = clock.spans_ms()
-            ms = {"forward": fwd, "backward": bwd, "optimizer": opt}
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            ms = {"forward": step.device_ms_of("loss"),
+                  "backward": step.device_ms_of("backward"),
+                  "optimizer": step.device_ms_of("optimizer")}
         peak = torch.cuda.max_memory_allocated(device) / 2 ** 20 \
             if device.type == "cuda" else None
         return {"losses": torch.stack([l.detach() for l in losses]),

@@ -10,10 +10,12 @@ driver (set-up, a `--seconds` window, the check against the reference),
 printing its numbers; for the first `--controls` seeds also the control
 (the reference computed with fp8 operands, put in the program's place)
 and the faults read in the reference's place (half of each batch, or of
-each scan's chunks, left out). One JSON line each:
-{"workload", "seed", "what", "numbers", "rejected", "s"}; "rejected"
-says whether the cell's committed limits (limits/<workload>.json) fail
-the numbers, by the comparison that decides a run's `correct`."""
+each scan's chunks, left out), by the driver's own `readings(cfg,
+traffic, seed, device)` where it defines one, else by its family's
+below. One JSON line each: {"workload", "seed", "what", "numbers",
+"rejected", "s"}; "rejected" says whether the cell's committed limits
+(limits/<workload>.json) fail the numbers, by the comparison that
+decides a run's `correct`."""
 
 import argparse
 import json
@@ -82,8 +84,10 @@ def infer_readings(cfg, traffic, seed, device):
 
 
 def readings(cfg, traffic, seed, device):
-    fn = train_readings if traffic["kind"] == "train_step" \
-        else infer_readings
+    """The driver's own `readings` where it has one, else its family's."""
+    fn = getattr(harness.driver(traffic), "readings", None) or (
+        train_readings if harness.family(traffic) == "train"
+        else infer_readings)
     return fn(cfg, traffic, seed, device)
 
 

@@ -13,6 +13,10 @@ an f32 weight gradient."""
 
 import math
 
+# the MODEL methods whose conv plan these counts describe (the DC3D
+# backbone); a reader returns None for any other
+METHODS = ("models.DC3D", "models.DC3DATGeneric")
+
 
 def estimate_conv3d_macs(model_cfg, spatial_size):
     n = model_cfg["n_layers"]

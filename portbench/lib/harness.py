@@ -3,11 +3,13 @@ metric readers, the checks and the result line.
 
 Everything a cell needs is found by name: BENCHMARK.json's workload
 names a configuration (portbench/configs/<config>.json) and a traffic
-mix (portbench/traffic/<traffic>.json, whose "kind" picks the driver in
-portbench/lib/); every metric is read by portbench/metrics/<name>.py
-(`read(ctx)`, None when it finds nothing to read); the limits of the
-cell's checks are portbench/limits/<workload>.json."""
+mix (portbench/traffic/<traffic>.json, whose "kind" picks the driver
+portbench/lib/<kind>.py, which declares its FAMILY); every metric is
+read by portbench/metrics/<name>.py (`read(ctx)`, None when it finds
+nothing to read); the limits of the cell's checks are
+portbench/limits/<workload>.json."""
 
+import importlib
 import importlib.util
 import json
 import os
@@ -18,6 +20,9 @@ ROOT = os.path.dirname(PORTBENCH)
 
 # modules that may not be loaded in a run's process, by top-level name
 BANNED = ("jax", "jaxlib", "flax", "dram_tpu")
+# what a driver's window counts: "train", chunks through optimizer
+# steps; "scan", scans to masks on the host
+FAMILIES = ("train", "scan")
 
 
 def manifest():
@@ -40,6 +45,16 @@ def cell(name, bench=None):
     traffic = _json("traffic", f"{wl['traffic']}.json")
     limits = _json("limits", f"{name}.json")
     return wl, cfg, traffic, limits
+
+
+def driver(traffic):
+    """The driver module of a traffic mix: portbench/lib/<kind>.py."""
+    return importlib.import_module(f"portbench.lib.{traffic['kind']}")
+
+
+def family(traffic):
+    """The FAMILY its driver declares (one of FAMILIES)."""
+    return driver(traffic).FAMILY
 
 
 def metrics_of(bench, workload, trace):

@@ -24,6 +24,8 @@ import torch
 from . import build, harness, synth
 from ..reference import scan as ref_scan
 
+FAMILY = "scan"
+
 
 def _scan_seed(seed, i):
     return (int(seed) * 16 + i + 1) % 2 ** 63

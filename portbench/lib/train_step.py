@@ -22,6 +22,8 @@ import torch
 from . import build, harness, synth
 from ..reference import train as ref_train
 
+FAMILY = "train"
+
 # leaves whose reference gradient is under this share of the median
 # leaf's move under Adam by round-off alone: out of change_gap and
 # grad_cos_gap

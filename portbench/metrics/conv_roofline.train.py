@@ -4,14 +4,16 @@ gradient and weight gradient launch of a step (lib/convcount.py) over
 the conv kernels' device time, the column sums that finish statistics
 and split weight gradients included, %."""
 
-from portbench.lib import convcount
+from portbench.lib import convcount, harness
 
 
 def read(ctx):
     p = ctx["prof"]
-    if p is None or ctx["traffic"]["kind"] != "train_step":
+    if p is None or harness.family(ctx["traffic"]) != "train":
         return None
     cfg = ctx["config"]["values"]
+    if cfg["MODEL"]["method"] not in convcount.METHODS:
+        return None
     launches = convcount.train_launches(cfg["MODEL"],
                                         cfg["RESAMPLE_SIZE"][0])
     return convcount.roofline_share(p["device_ops"], launches,

@@ -3,9 +3,11 @@ dispatch to its mask on the host (host clock), ms."""
 
 import numpy as np
 
+from portbench.lib import harness
+
 
 def read(ctx):
-    if ctx["traffic"]["kind"] != "scan_infer":
+    if harness.family(ctx["traffic"]) != "scan":
         return None
     lat = ctx["window"]["latencies_s"]
     return float(np.percentile(lat, 95)) * 1e3 if lat else None

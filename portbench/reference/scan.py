@@ -25,8 +25,7 @@ import math
 import numpy as np
 import torch
 
-from . import exact_f32
-from .nets import forward
+from . import exact_f32, forward_for
 from .quant import QUANTS
 
 RATIO_GATE = 0.001
@@ -210,7 +209,8 @@ def run_scan(scan, lobe, spacing, P, cfg, traffic, quant="exact",
         x = torch.stack(x80)[:, None]
         l80 = torch.stack(l80).float()
         with torch.no_grad():
-            _, refined = forward(x, P, cfg["MODEL"], False, QUANTS[quant])
+            _, refined = forward_for(cfg["MODEL"])(
+                x, P, cfg["MODEL"], False, QUANTS[quant])
         out = refined[:, 0]
         ratio = (torch.sigmoid(out) * l80).sum((1, 2, 3)) \
             / torch.clamp(l80.sum((1, 2, 3)), min=1.0)

@@ -5,8 +5,7 @@ running statistics moved by each step's batch statistics."""
 
 import torch
 
-from . import exact_f32
-from .nets import forward
+from . import exact_f32, forward_for
 from .quant import QUANTS
 
 CTSS_RATIO_LB = (0.0, 0.001, 0.01, 0.05, 0.35, 0.5)
@@ -78,6 +77,7 @@ def steps(P0, batches, cfg, n_steps=3, quant="exact", rows=None):
     gradients, "state": parameters and buffers after the last step}."""
     q = QUANTS[quant]
     model_cfg = cfg["MODEL"]
+    forward = forward_for(model_cfg)
     loss_cfg = cfg["LOSS_FUNC"]
     if loss_cfg["method"] != "metrics.IntRegRefineLoss":
         raise NotImplementedError(loss_cfg["method"])

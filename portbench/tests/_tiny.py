@@ -1,20 +1,28 @@
 """A cell cut to a size a CPU test holds: narrow widths, 16^3 chunks,
 float32, parameters from the seed, two small scans; limits set from
-such runs' sound readings (float32 on both sides read 0 to 3e-5), far
-under what the faults and the control read."""
+such runs' sound readings, far under what the faults and the control
+read. Training: float32 on both sides reads 0 to 3e-5. Scans: the
+masks differ by a few voxels at the Otsu cut (the program's C++ prep
+rounds HU where the reference's prep does not): pred_diff / post_diff
+read 0 to 0.0078 over eighteen seeds, eight of them with non-empty
+masks (0.0078 is 2 of 290 mask voxels), against 0.089 and more for the
+faults and the control on five of those; ratio_gap reads at most
+1.3e-5."""
 
 import copy
 
 from portbench.lib import harness
 
-TINY_LIMITS = {"train_step": {"loss_gap": 1e-3, "grad_gap": 1e-2,
-                              "grad_cos_gap": 1e-3, "change_gap": 1e-2},
-               "scan_infer": {"pred_diff": 1e-3, "post_diff": 1e-3,
-                              "ratio_gap": 1e-3}}
+# by the driver's family; a cell takes the limits its committed file
+# names
+TINY_LIMITS = {"train": {"loss_gap": 1e-3, "grad_gap": 1e-2,
+                         "grad_cos_gap": 1e-3, "change_gap": 1e-2},
+               "scan": {"pred_diff": 0.025, "post_diff": 0.025,
+                        "ratio_gap": 1e-3, "label_err": 0.0}}
 
 
 def tiny(workload):
-    _, cfg, traffic, _ = harness.cell(workload)
+    _, cfg, traffic, limits = harness.cell(workload)
     cfg, traffic = copy.deepcopy(cfg), copy.deepcopy(traffic)
     v = cfg["values"]
     v["MODEL"].update(base_ch_list=[4, 8, 8, 8, 8, 8, 8],
@@ -26,8 +34,9 @@ def tiny(workload):
     v["TRAIN_BATCH_SIZE"] = 4
     v["COMPUTE_DTYPE"] = "float32"
     cfg["weights"] = "seed"
-    if traffic["kind"] == "scan_infer":
+    family = harness.family(traffic)
+    if family == "scan":
         traffic["geometries"] = [[[40, 48, 48], [1.0, 0.8, 0.8]],
                                  [[44, 40, 40], [0.9, 1.0, 1.0]]]
     return {"config": cfg, "traffic": traffic,
-            "limits": dict(TINY_LIMITS[traffic["kind"]])}
+            "limits": {k: TINY_LIMITS[family][k] for k in limits}}

@@ -9,7 +9,8 @@ import pytest
 
 from portbench.lib import convcount, harness, peaks, trace
 
-FLAGSHIP = {"n_layers": 3, "in_ch_list": [1, 64, 128, 256, 768, 384, 192],
+FLAGSHIP = {"method": "models.DC3DATGeneric", "n_layers": 3,
+            "in_ch_list": [1, 64, 128, 256, 768, 384, 192],
             "base_ch_list": [32, 64, 128, 256, 256, 128, 64],
             "end_ch_list": [64, 128, 256, 512, 256, 128, 64]}
 

@@ -11,6 +11,17 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 
 
+def _driver_ok(kind):
+    """A traffic kind names a driver module under portbench/lib/ with
+    `run` and a FAMILY of harness.FAMILIES."""
+    if not NAME.match(kind) or not os.path.exists(
+            os.path.join(harness.PORTBENCH, "lib", kind + ".py")):
+        return False
+    mod = harness.driver({"kind": kind})
+    return callable(getattr(mod, "run", None)) and \
+        getattr(mod, "FAMILY", None) in harness.FAMILIES
+
+
 def test_manifest_and_named_files_load():
     b = harness.manifest()
     assert set(b) == {"command", "paths", "run_seconds", "configs",
@@ -29,7 +40,7 @@ def test_manifest_and_named_files_load():
         assert w["config"] in configs and w["chips"] in (1, 4)
         assert 1 <= len(w["why"]) <= 200
         _, cfg, traffic, limits = harness.cell(w["name"], b)
-        assert traffic["kind"] in ("scan_infer", "train_step") and limits
+        assert limits and _driver_ok(traffic["kind"])
         used.add(w["config"])
         for m in harness.metrics_of(b, w["name"], 0):
             assert m["source"] in ("host_clock", "device_trace")
